@@ -1,0 +1,391 @@
+"""The packed search tree and its two kernels: ``select_walk`` and ``backup_paths``.
+
+Counterpart of ``alphazero_gomoku_tpu/ops/tree_kernels.py``.  The tree of B
+games is one f32 tensor ``[B, n_nodes * GROUP, seg]`` in the JAX package's
+layout: node ``k`` of lane ``b`` owns rows ``[k*GROUP, (k+1)*GROUP)`` of
+``packed[b]``, one row per field (``seg`` = ``num_actions`` rounded up to 128):
+
+  row 0  N     per-action visit counts
+  row 1  W     per-action total values
+  row 2  P     signed priors (illegal = -1; columns >= A padded -1)
+  row 3  C     child node indices as small-int f32 (-1 = unexpanded)
+  row 4  meta  col 0 = done flag, col 1 = node value estimate
+  rows 5-7     unused (the TPU's 8-sublane tile; kept so layouts match)
+
+Each kernel has three parts here:
+
+  - ``*_plain``: the function in plain PyTorch, batched over lanes.  The CPU
+    tests hold it against the JAX package, and ``chip_smoke.py`` holds the
+    kernel against it on the card.
+  - ``select_walk`` / ``backup_paths``: the wrappers with the JAX signatures.
+    A tensor on the CPU goes to the plain version; a CUDA tensor goes to the
+    hand-written kernel in ``csrc/tree_kernels.cu`` or raises.  Each wrapper
+    counts its kernel launches in its ``launches`` attribute.
+
+Only mode ``"backup"`` of ``backup_paths`` is ported; ``"vl"`` and
+``"finalize"`` (k-leaf search) wait for ROADMAP Queue A item 11.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Tuple
+
+import torch
+
+from alphazero_gomoku_tpu_torch.ops import _build
+
+NEG_INF = -1e9
+GROUP = 8  # rows per node tile (the TPU's f32 sublane tile)
+
+# row indices within a node tile (see module docstring)
+SL_N, SL_W, SL_P, SL_C, SL_META = 0, 1, 2, 3, 4
+
+# action index when no score equals the maximum (only with NaN scores); the
+# JAX kernel's sentinel
+NO_ACTION = 1 << 30
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+class PackedLayout(NamedTuple):
+    """Shape constants of the packed node-tile array.
+
+    The tree is ``[B, n_nodes * GROUP, seg]`` f32; node ``k`` owns rows
+    ``[k*GROUP, (k+1)*GROUP)``.  ``seg`` is ``num_actions`` rounded up to 128.
+    """
+
+    num_actions: int   # A
+    seg: int           # row width
+    n_nodes: int       # node capacity (dim 1 is n_nodes * GROUP)
+
+
+def packed_layout(num_actions: int, n_nodes: int) -> PackedLayout:
+    return PackedLayout(num_actions=num_actions,
+                        seg=_round_up(num_actions, 128),
+                        n_nodes=int(n_nodes))
+
+
+def init_packed(batch: int, layout: PackedLayout, device) -> torch.Tensor:
+    """Fresh packed tree: zero stats, children -1 (``tree_pallas._init_packed``)."""
+    packed = torch.zeros((batch, layout.n_nodes * GROUP, layout.seg),
+                         dtype=torch.float32, device=device)
+    packed[:, SL_C::GROUP, :] = -1.0
+    return packed
+
+
+def node_tiles(packed: torch.Tensor, layout: PackedLayout) -> torch.Tensor:
+    """A ``[B, n_nodes, GROUP, seg]`` view of the packed tree (no copy)."""
+    return packed.view(packed.shape[0], layout.n_nodes, GROUP, layout.seg)
+
+
+def _butterfly_sum(x: torch.Tensor) -> torch.Tensor:
+    """Row sums of ``x [B, A]`` in the CUDA kernel's order (``warp_sum``).
+
+    Thread ``t`` of a warp adds columns ``t, t+32, ...`` from 0, then the
+    threads combine with xor offsets 16, 8, 4, 2, 1.  Floating-point sums
+    depend on their order; this one makes the plain version equal the kernel.
+    """
+    b, a = x.shape
+    k = (a + 31) // 32
+    cols = torch.zeros((b, k * 32), dtype=x.dtype, device=x.device)
+    cols[:, :a] = x
+    cols = cols.view(b, k, 32)
+    part = torch.zeros((b, 32), dtype=x.dtype, device=x.device)
+    for j in range(k):  # padding columns add exact zeros
+        part = part + cols[:, j]
+    t = torch.arange(32, device=x.device)
+    for off in (16, 8, 4, 2, 1):
+        part = part + part[:, t ^ off]
+    return part[:, 0]
+
+
+# ----------------------------------------------------------------------
+# select_walk
+# ----------------------------------------------------------------------
+def select_walk_plain(packed: torch.Tensor, layout: PackedLayout,
+                      cpuct: float, depth_limit: int,
+                      fpu_parent: bool = False):
+    """Plain PyTorch PUCT walk over B packed trees (all lanes per hop).
+
+    Same outputs as :func:`select_walk`.  Path rows at and beyond a lane's
+    ``path_len`` are -1.
+    """
+    b = packed.shape[0]
+    a = layout.num_actions
+    dev = packed.device
+    tiles = node_tiles(packed, layout)
+    n_max = layout.n_nodes - 1
+    lanes = torch.arange(b, device=dev)
+    iota = torch.arange(a, device=dev, dtype=torch.int32)
+    cpuct_t = torch.tensor(cpuct, dtype=torch.float32, device=dev)
+
+    nodes = torch.zeros(b, dtype=torch.int32, device=dev)
+    walking = torch.ones(b, dtype=torch.bool, device=dev)
+    leaf = torch.zeros(b, dtype=torch.int32, device=dev)
+    action = torch.full((b,), -1, dtype=torch.int32, device=dev)
+    plen = torch.zeros(b, dtype=torch.int32, device=dev)
+    pnodes = torch.full((depth_limit, b), -1, dtype=torch.int32, device=dev)
+    pacts = torch.full((depth_limit, b), -1, dtype=torch.int32, device=dev)
+
+    for h in range(depth_limit):
+        if not bool(walking.any()):
+            break
+        tile = tiles[lanes, nodes.long().clamp(0, n_max)]      # [B, GROUP, seg]
+        n = tile[:, SL_N, :a]
+        w = tile[:, SL_W, :a]
+        p = tile[:, SL_P, :a]
+        done = tile[:, SL_META, 0] > 0.5
+
+        sum_n = n.sum(dim=1, keepdim=True)  # integer-valued: exact in any order
+        if fpu_parent:
+            parent_q = _butterfly_sum(w)[:, None] / torch.clamp(sum_n, min=1.0)
+            q = torch.where(n > 0.0, w / torch.clamp(n, min=1.0), parent_q)
+        else:
+            q = w / (1.0 + n)
+        sqrt_sum = torch.sqrt(sum_n)
+        scores = q + cpuct_t * torch.clamp(p, min=0.0) * sqrt_sum / (1.0 + n)
+        scores = torch.where(p >= 0.0, scores, NEG_INF)
+        # lowest index of the maximum, written out rather than left to argmax
+        mx = scores.max(dim=1, keepdim=True).values
+        best = torch.where(scores == mx, iota, NO_ACTION).min(dim=1).values
+        in_range = best < a
+        child = tile[lanes, SL_C, best.long().clamp(max=a - 1)].to(torch.int32)
+        child = torch.where(in_range, child, 0)
+
+        stop_done = walking & done
+        rec = walking & ~done
+        pnodes[h] = torch.where(rec, nodes, -1)
+        pacts[h] = torch.where(rec, best, -1)
+        plen = plen + rec.int()
+        stop_expand = rec & (child < 0)
+        stop_now = stop_done | stop_expand
+        action = torch.where(stop_expand, best, action)
+        leaf = torch.where(stop_now, nodes, leaf)
+        nodes = torch.where(rec & (child >= 0), child, nodes)
+        walking = walking & ~stop_now
+
+    # lanes still walking hit the depth cap: leaf = the node reached, action -1
+    leaf = torch.where(walking, nodes, leaf)
+    return leaf, action, pnodes, pacts, plen
+
+
+def _check(t: torch.Tensor, name: str, dtype, shape, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_packed(packed: torch.Tensor, layout: PackedLayout):
+    b = packed.shape[0] if packed.dim() == 3 else -1
+    _check(packed, "packed", torch.float32,
+           (b, layout.n_nodes * GROUP, layout.seg), packed.device)
+    if b < 1:
+        raise ValueError("packed needs at least one lane")
+    if not 0 < layout.num_actions <= layout.seg:
+        raise ValueError(f"bad layout {layout}")
+    return b
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.build("tree_kernels").lib
+    if not getattr(lib, "_argtypes_set", False):
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.select_walk_launch.argtypes = [p, i, i, i, i, f, i, i,
+                                           p, p, p, p, p, p]
+        lib.select_walk_launch.restype = i
+        lib.backup_paths_launch.argtypes = [p, i, i, i, i, i, p, p, p, p, p,
+                                            p, p, i, p]
+        lib.backup_paths_launch.restype = i
+        lib._argtypes_set = True
+    return lib
+
+
+def _raise_on(err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed with CUDA error {err}")
+
+
+def select_walk(packed: torch.Tensor, layout: PackedLayout, cpuct: float,
+                depth_limit: int, fpu_parent: bool = False
+                ) -> Tuple[torch.Tensor, ...]:
+    """Lockstep PUCT select over B packed trees.
+
+    Args:
+        packed: f32 ``[B, n_nodes * GROUP, seg]`` packed node tiles.
+    Returns:
+        ``leaf [B]`` i32, the node each lane stopped on; ``action [B]`` i32,
+        the edge to expand (-1 when the lane stopped on a terminal or
+        depth-capped node); ``path_nodes`` / ``path_actions`` ``[depth, B]``
+        i32 (-1 at and beyond ``path_len``) and ``path_len [B]`` i32 for the
+        backup.
+
+    CPU tensors take :func:`select_walk_plain`; CUDA tensors the kernel.
+    """
+    b = _check_packed(packed, layout)
+    if depth_limit < 1:
+        raise ValueError(f"depth_limit={depth_limit} < 1")
+    if packed.device.type == "cpu":
+        return select_walk_plain(packed, layout, cpuct, depth_limit,
+                                 fpu_parent)
+    if packed.device.type != "cuda":
+        raise ValueError(f"select_walk: unsupported device {packed.device}")
+    lib = _library()
+    dev = packed.device
+
+    def out(*shape):
+        return torch.empty(shape, dtype=torch.int32, device=dev)
+
+    leaf, action, plen = out(b), out(b), out(b)
+    pnodes, pacts = out(depth_limit, b), out(depth_limit, b)
+    with torch.cuda.device(dev):
+        err = lib.select_walk_launch(
+            packed.data_ptr(), b, layout.n_nodes, layout.seg,
+            layout.num_actions, float(cpuct), depth_limit, int(fpu_parent),
+            leaf.data_ptr(), action.data_ptr(), pnodes.data_ptr(),
+            pacts.data_ptr(), plen.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "select_walk")
+    select_walk.launches += 1
+    return leaf, action, pnodes, pacts, plen
+
+
+select_walk.launches = 0
+
+
+# ----------------------------------------------------------------------
+# backup_paths
+# ----------------------------------------------------------------------
+def backup_paths_plain(packed: torch.Tensor, path_nodes: torch.Tensor,
+                       path_actions: torch.Tensor, path_len: torch.Tensor,
+                       values: torch.Tensor, expanding: torch.Tensor,
+                       slot: int, layout: PackedLayout,
+                       signed_priors: torch.Tensor,
+                       done: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch slot-tile write and path backup, IN PLACE on ``packed``.
+
+    Same semantics as :func:`backup_paths` in mode ``"backup"``; returns
+    ``packed``.
+    """
+    b = packed.shape[0]
+    a = layout.num_actions
+    dev = packed.device
+    tiles = node_tiles(packed, layout)
+    n_max = layout.n_nodes - 1
+    lanes = torch.arange(b, device=dev)
+
+    tile = torch.zeros((b, GROUP, layout.seg), dtype=torch.float32, device=dev)
+    tile[:, SL_P, :] = -1.0
+    tile[:, SL_P, :a] = signed_priors
+    tile[:, SL_C, :] = -1.0
+    tile[:, SL_META, 0] = done.to(torch.float32)
+    tile[:, SL_META, 1] = values
+    tiles[:, min(max(slot, 0), n_max)] = tile
+
+    plen = path_len.long()
+    expanding = expanding.bool()
+    hops = min(int(plen.max()), path_nodes.shape[0])
+    for i in range(hops):
+        act = path_actions[i].long()
+        active = (i < plen) & (act >= 0) & (act < layout.seg)
+        node = path_nodes[i].long().clamp(0, n_max)
+        col = act.clamp(0, layout.seg - 1)
+        v = torch.where((plen - i) % 2 == 1, -values, values)
+        # inactive lanes rewrite the entry they read: each lane owns its tree,
+        # so no two lanes' entries coincide
+        n_old = tiles[lanes, node, SL_N, col]
+        w_old = tiles[lanes, node, SL_W, col]
+        tiles[lanes, node, SL_N, col] = torch.where(active, n_old + 1.0, n_old)
+        tiles[lanes, node, SL_W, col] = torch.where(active, w_old + v, w_old)
+        link = active & expanding & (i == plen - 1)
+        c_old = tiles[lanes, node, SL_C, col]
+        tiles[lanes, node, SL_C, col] = torch.where(link, float(slot), c_old)
+    return packed
+
+
+def backup_paths(packed: torch.Tensor, path_nodes: torch.Tensor,
+                 path_actions: torch.Tensor, path_len: torch.Tensor,
+                 values: torch.Tensor, expanding: torch.Tensor, slot: int,
+                 layout: PackedLayout, signed_priors: torch.Tensor,
+                 done: torch.Tensor, mode: str = "backup") -> torch.Tensor:
+    """Write the fresh slot tile, then apply one simulation's backup.
+
+    IN PLACE on ``packed``, which is returned.  ``slot`` (a Python int, the
+    same for every lane) is the node expanded this simulation; its tile gets
+    ``signed_priors`` ``[B, A]`` (padded to ``seg`` with -1), the ``done`` flag
+    ``[B]`` and the leaf value, with N = W = 0 and children -1.  Then each
+    lane's recorded path gets N += 1 and W += ±value, the sign flipping at
+    every hop up from the leaf, and on lanes with ``expanding`` set the last
+    edge is linked to ``slot``.  ``expanding`` and ``done`` may be bool or
+    int (nonzero = set).
+
+    CPU tensors take :func:`backup_paths_plain`; CUDA tensors the kernel.
+    """
+    if mode != "backup":
+        if mode in ("vl", "finalize"):
+            raise NotImplementedError(
+                f"backup_paths mode {mode!r} (k-leaf virtual loss) is not "
+                "ported yet (ROADMAP Queue A item 11)")
+        raise ValueError(f"unknown backup mode: {mode!r}")
+    b = _check_packed(packed, layout)
+    dev = packed.device
+    d = path_nodes.shape[0] if path_nodes.dim() == 2 else -1
+    if d < 1:
+        raise ValueError("path_nodes must be [depth, B] with depth >= 1")
+    _check(path_nodes, "path_nodes", torch.int32, (d, b), dev)
+    _check(path_actions, "path_actions", torch.int32, (d, b), dev)
+    _check(path_len, "path_len", torch.int32, (b,), dev)
+    _check(values, "values", torch.float32, (b,), dev)
+    _check(signed_priors, "signed_priors", torch.float32,
+           (b, layout.num_actions), dev)
+    expanding = expanding if expanding.dtype == torch.bool else expanding != 0
+    done = done if done.dtype == torch.bool else done != 0
+    _check(expanding, "expanding", torch.bool, (b,), dev)
+    _check(done, "done", torch.bool, (b,), dev)
+    slot = int(slot)
+    if dev.type == "cpu":
+        return backup_paths_plain(packed, path_nodes, path_actions, path_len,
+                                  values, expanding, slot, layout,
+                                  signed_priors, done)
+    if dev.type != "cuda":
+        raise ValueError(f"backup_paths: unsupported device {dev}")
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.backup_paths_launch(
+            packed.data_ptr(), b, layout.n_nodes, layout.seg,
+            layout.num_actions, d, path_nodes.data_ptr(),
+            path_actions.data_ptr(), path_len.data_ptr(), values.data_ptr(),
+            expanding.data_ptr(), signed_priors.data_ptr(), done.data_ptr(),
+            slot, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "backup_paths")
+    backup_paths.launches += 1
+    return packed
+
+
+backup_paths.launches = 0
+
+
+def reset_launch_counts():
+    select_walk.launches = 0
+    backup_paths.launches = 0
+
+
+class TreeOps(NamedTuple):
+    """The tree functions a search runs: the wrappers, or the plain ones."""
+
+    select_walk: object
+    backup_paths: object
+
+
+KERNELS = TreeOps(select_walk, backup_paths)
+# the plain versions on any device: chip_smoke.py runs a search with these on
+# the card to hold the kernel path's pi against them
+PLAIN = TreeOps(select_walk_plain, backup_paths_plain)

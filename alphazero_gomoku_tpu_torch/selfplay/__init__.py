@@ -1,0 +1,8 @@
+"""Lockstep batched self-play."""
+
+from alphazero_gomoku_tpu_torch.selfplay.runner import (  # noqa: F401
+    SelfPlayConfig,
+    Trajectories,
+    play_games,
+    sample_actions,
+)

@@ -1,0 +1,398 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one CUDA card.
+
+    python3 chip_smoke.py [--seed N]
+
+Builds the port's CUDA kernels from ``alphazero_gomoku_tpu_torch/csrc`` with
+``nvcc``, holds each kernel against its plain PyTorch version on the card,
+holds a search's pi on the kernels against the same search on the plain
+versions, and then drives the main path: lockstep Gomoku 15x15 self-play
+with the 6x128 ResNet and PUCT@400 at batch 256 (bench config #3 of
+``bench.py``), for 8 moves, with random weights made from ``--seed``.
+
+Every phase prints its seconds.  Nothing is caught: a failed phase exits
+non-zero.  Without a CUDA card it exits 1 before any result.  The last lines
+are the card's ``nvidia-smi`` name and power limit, a JSON line with each
+kernel's launches on the main path, its error against the plain version and
+its times, and ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+
+import torch
+
+from alphazero_gomoku_tpu_torch.games import make_env
+from alphazero_gomoku_tpu_torch.models import (
+    NetConfig,
+    bundle_of,
+    init_params,
+    make_eval_fn,
+)
+from alphazero_gomoku_tpu_torch.ops import _build
+from alphazero_gomoku_tpu_torch.ops import tree_kernels as tk
+from alphazero_gomoku_tpu_torch.search import MCTSConfig
+from alphazero_gomoku_tpu_torch.search.tree_packed import (
+    run_mcts_packed,
+    run_mcts_packed_with_tree,
+)
+from alphazero_gomoku_tpu_torch.selfplay import SelfPlayConfig, play_games
+
+BOARD = 15
+BATCH = 256
+SIMS = 400
+MOVES = 8
+GROW_SIMS = 64       # simulations that grow the tree the kernels are held on
+PI_BATCH, PI_SIMS = 32, 64   # the search whose pi is held kernels vs plain
+# bench.py:127-135, config #3: PUCT@400, batch 256, 6x128, depth cap 56
+MAIN_MCTS = MCTSConfig(n_simulations=SIMS, cpuct=1.0, add_noise=True,
+                       dirichlet_alpha=0.05, dirichlet_epsilon=0.15,
+                       dirichlet_moves=10, max_depth=56)
+
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, FP32 FLOP/s
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+
+KERNEL_ROWS = {
+    "select_walk": dict(
+        source="alphazero_gomoku_tpu_torch/csrc/tree_kernels.cu",
+        replaces="alphazero_gomoku_tpu/ops/tree_kernels.py:297"),
+    "backup_paths": dict(
+        source="alphazero_gomoku_tpu_torch/csrc/tree_kernels.cu",
+        replaces="alphazero_gomoku_tpu/ops/tree_kernels.py:780"),
+}
+
+
+def log(msg: str):
+    print(msg, flush=True)
+
+
+class Phase:
+    """Prints a phase's seconds, synchronising the card at its end."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        log(f"== {self.name}")
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if exc_type is None:
+            torch.cuda.synchronize()
+        log(f"== {self.name}: {time.perf_counter() - self.t0:.3f} s")
+
+
+def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
+    """Mean milliseconds per call of ``fn()`` by CUDA events around a loop of
+    eager calls: the host's launch cost counts where it exceeds the work."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Device milliseconds per call of ``fn()``: ``reps`` calls captured in
+    one CUDA graph and replayed, so the host's launch cost is left out."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+        timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def random_states(env, batch, plies, generator, dev):
+    """Games advanced by ``plies`` uniformly random legal moves."""
+    states = env.init_batch(batch, dev)
+    for _ in range(plies):
+        legal = env.legal_mask(states)
+        u = torch.rand(legal.shape, generator=generator, device=dev)
+        states = env.step_safe(states, torch.argmax(
+            torch.where(legal, u, -1.0), dim=1))
+    return states
+
+
+def max_abs_err(got, want) -> float:
+    return max(float((g.double() - w.double()).abs().max())
+               for g, w in zip(got, want))
+
+
+def bound(nbytes: float, flops: float):
+    """(bound_ms, bound_by): the larger of bytes over HBM and flops over fp32."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def select_bound(layout, sel, depth):
+    """What ``select_walk`` must move on this tree: per node read, the N, W,
+    P rows, the done flag and one child index; the outputs once."""
+    _, action, _, _, plen = (x.long() for x in sel)
+    hops = torch.where(action >= 0, plen, torch.clamp(plen + 1, max=depth))
+    reads = int(hops.sum())
+    b = plen.shape[0]
+    a = layout.num_actions
+    nbytes = reads * (3 * a + 2) * 4 + (3 * b + 2 * depth * b) * 4
+    flops = reads * a * 8       # sum N, q, the score, the max: ~8 per action
+    return bound(nbytes, flops)
+
+
+def backup_bound(layout, plen, expanding, depth):
+    """What ``backup_paths`` must move: the slot tile's N, W and C rows at
+    ``num_actions`` columns, its P row at ``seg`` columns (the -1 padding is
+    part of the packed layout that the exact checks compare) and its two meta
+    floats, written; the priors and per-lane inputs read; per hop the path
+    entry read and N, W read and written; C written on the expansion edge.
+    Rows 5-7 are left out: they are zero from ``init_packed`` and nothing
+    reads them."""
+    b = plen.shape[0]
+    a = layout.num_actions
+    hops = int(plen.sum())
+    tile = (3 * a + layout.seg + 2) * 4
+    nbytes = (b * tile + b * a * 4 + b * (4 + 4 + 1 + 1) + hops * (8 + 16)
+              + int(expanding.sum()) * 4)
+    return bound(nbytes, 2 * hops)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke run needs the "
+              "card", file=sys.stderr)
+        return 1
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    env = make_env("gomoku", BOARD)
+    net_cfg = NetConfig.full(BOARD)
+    rows = {name: dict(name=name, route="cuda", **meta)
+            for name, meta in KERNEL_ROWS.items()}
+
+    with Phase("1 device"):
+        kind = torch.cuda.get_device_name(0)
+        count = torch.cuda.device_count()
+        smi = nvidia_smi()
+        log(f"device: {kind}, count {count}; nvidia-smi: {smi}")
+        log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+            f"python {sys.version.split()[0]}")
+        # TF32 off for matmul and cuDNN in this slice: float32 throughout
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        log("tf32: matmul off, cudnn off")
+
+    with Phase("2 build"):
+        built = _build.build("tree_kernels")
+        how = "reused an earlier build" if built.reused else "built"
+        log(f"{how}: {built.path.name}, nvcc {built.seconds:.2f} s")
+        for line in built.ptxas:
+            log(f"  {line}")
+
+    net = bundle_of(net_cfg, *init_params(net_cfg, args.seed), device=dev)
+    eval_fn = make_eval_fn()
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+
+    grow = dataclasses.replace(MAIN_MCTS, n_simulations=GROW_SIMS,
+                               max_nodes=MAIN_MCTS.node_capacity)
+    layout = tk.packed_layout(env.num_actions, grow.node_capacity)
+    depth = grow.depth_limit
+    with Phase(f"3 kernels against their plain versions (batch {BATCH}, "
+               f"{layout.n_nodes} nodes, seg {layout.seg}, depth cap {depth})"):
+        states = random_states(env, BATCH, 4, gen, dev)
+        moves = torch.full((BATCH,), 4, dtype=torch.int32, device=dev)
+        _, _, tree = run_mcts_packed_with_tree(env, grow, eval_fn, net,
+                                               states, moves, gen)
+        log(f"grew the tree: {grow.n_simulations} simulations, packed "
+            f"{tuple(tree.shape)}")
+
+        sel = tk.select_walk(tree, layout, grow.cpuct, depth)
+        sel_plain = tk.select_walk_plain(tree, layout, grow.cpuct, depth)
+        for name, k, p in zip(("leaf", "action", "path_nodes",
+                               "path_actions", "path_len"), sel, sel_plain):
+            if not torch.equal(k, p):
+                raise AssertionError(f"select_walk {name}: kernel != plain "
+                                 f"(tolerance 0)")
+        err = max_abs_err(sel, sel_plain)
+        plen = sel[4]
+        log(f"select_walk: kernel == plain on every output, tolerance 0 "
+            f"(max abs err "
+            f"{err}); path_len mean {plen.float().mean():.2f} max "
+            f"{int(plen.max())}")
+        def select_call():
+            return tk.select_walk(tree, layout, grow.cpuct, depth)
+
+        ms = graph_ms(select_call, reps=50)
+        eager_ms = cuda_ms(select_call, reps=50)
+        plain_ms = cuda_ms(lambda: tk.select_walk_plain(
+            tree, layout, grow.cpuct, depth), reps=10, warmup=1)
+        bound_ms, bound_by = select_bound(layout, sel, depth)
+        rows["select_walk"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                   bound_ms=bound_ms, bound_by=bound_by,
+                                   library_ms=None)
+        log(f"select_walk: kernel {ms:.4f} ms (CUDA graph replay; eager "
+            f"wrapper call {eager_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.6f} ms ({bound_by}); no single PyTorch call computes "
+            f"the walk, so library_ms is null")
+
+        leaf, action, pnodes, pacts, plen = sel
+        values = torch.rand(BATCH, generator=gen, device=dev) * 2 - 1
+        legal = torch.rand((BATCH, env.num_actions), generator=gen,
+                           device=dev) < 0.9
+        priors = torch.where(legal, torch.rand(legal.shape, generator=gen,
+                                               device=dev), -1.0)
+        done = torch.rand(BATCH, generator=gen, device=dev) < 0.1
+        expanding = action >= 0
+        slot = grow.n_simulations + 1
+        bargs = (pnodes, pacts, plen, values, expanding, slot, layout, priors,
+                 done)
+        got = tk.backup_paths(tree.clone(), *bargs)
+        want = tk.backup_paths_plain(tree.clone(), *bargs)
+        if not torch.equal(got, want):
+            raise AssertionError("backup_paths: kernel != plain (tolerance 0)")
+        if torch.equal(got, tree):
+            raise AssertionError("backup_paths changed nothing")
+        err = float((got - want).abs().max())
+        log(f"backup_paths: kernel == plain on the whole packed tree, "
+            f"tolerance 0 (max abs err {err})")
+        # repeated backups on one scratch tree: the path stays valid
+        scratch = tree.clone()
+        def backup_call():
+            return tk.backup_paths(scratch, *bargs)
+
+        ms = graph_ms(backup_call, reps=50)
+        eager_ms = cuda_ms(backup_call, reps=50)
+        plain_ms = cuda_ms(lambda: tk.backup_paths_plain(scratch, *bargs),
+                           reps=10, warmup=1)
+        bound_ms, bound_by = backup_bound(layout, plen, expanding, depth)
+        rows["backup_paths"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                    bound_ms=bound_ms, bound_by=bound_by,
+                                    library_ms=None)
+        log(f"backup_paths: kernel {ms:.4f} ms (CUDA graph replay; eager "
+            f"wrapper call {eager_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.6f} ms ({bound_by}); no single PyTorch call computes "
+            f"the backup, so library_ms is null")
+        del tree, scratch, got, want
+
+    with Phase(f"4 search pi, kernels against plain (batch {PI_BATCH}, "
+               f"{PI_SIMS} sims, 6x128, cudnn deterministic)"):
+        torch.backends.cudnn.deterministic = True
+        cfg64 = dataclasses.replace(MAIN_MCTS, n_simulations=PI_SIMS)
+        states = random_states(env, PI_BATCH, 6, gen, dev)
+        moves = torch.full((PI_BATCH,), 6, dtype=torch.int32, device=dev)
+        out = {}
+        for label, ops in (("kernels", tk.KERNELS), ("plain", tk.PLAIN)):
+            g = torch.Generator(device=dev).manual_seed(args.seed + 1)
+            out[label] = run_mcts_packed(env, cfg64, eval_fn, net, states,
+                                         moves, g, ops=ops)
+        if not torch.equal(out["kernels"][0], out["plain"][0]):
+            raise AssertionError("search pi: kernels != plain")
+        qdiff = float((out["kernels"][1] - out["plain"][1]).abs().max())
+        log(f"search pi: kernels == plain exactly over {PI_BATCH} lanes; "
+            f"root_q max "
+            f"abs diff {qdiff}")
+        torch.backends.cudnn.deterministic = False
+
+    sp_cfg = SelfPlayConfig(batch_games=BATCH, mcts=MAIN_MCTS,
+                            temp_threshold=10, max_moves=MOVES)
+    with Phase(f"5a main path warm-up (batch {BATCH}, 1 move, 8 sims)"):
+        warm = dataclasses.replace(
+            sp_cfg, max_moves=1,
+            mcts=dataclasses.replace(MAIN_MCTS, n_simulations=8))
+        play_games(env, warm, eval_fn, net, gen, dev)
+
+    with Phase(f"5b main path: play_games batch {BATCH}, 6x128, "
+               f"{BOARD}x{BOARD}, PUCT@{SIMS}, {MOVES} moves"):
+        tk.reset_launch_counts()
+        t0 = time.perf_counter()
+        traj = play_games(env, sp_cfg, eval_fn, net, gen, dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {"select_walk": tk.select_walk.launches,
+                    "backup_paths": tk.backup_paths.launches}
+        moves_done = int(torch.clamp(traj.moves_played, max=MOVES).sum())
+        log(f"main path: {moves_done} moves in {seconds:.3f} s = "
+            f"{moves_done / seconds:.2f} moves/s (batch {BATCH}, 6x128, "
+            f"PUCT@{SIMS}, {BOARD}x{BOARD}, fp32, TF32 off) on {smi}")
+        log(f"launches: {launches}")
+        for name, n in launches.items():
+            if n != MOVES * SIMS:
+                raise AssertionError(f"{name}: {n} launches, expected "
+                                     f"{MOVES} x {SIMS}")
+            rows[name]["launches"] = n
+        check_trajectories(env, traj)
+        log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+            f" GiB")
+
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(nvidia_smi())
+    log(json.dumps({"kernels": [rows[k] for k in KERNEL_ROWS]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": count}}), flush=True)
+    return 0
+
+
+def check_trajectories(env, traj):
+    """The main path's output, by the repo's own means: pi is a distribution
+    over legal moves, boards gain one stone a ply, values are finite."""
+    pis = traj.pis[:MOVES]
+    if pis.shape != (MOVES, BATCH, env.num_actions):
+        raise AssertionError(f"pis shape {tuple(pis.shape)}")
+    if not (torch.isfinite(pis).all() and torch.isfinite(traj.root_qs).all()):
+        raise AssertionError("non-finite pi or root_q")
+    if not traj.active[:MOVES].all():
+        raise AssertionError("a game ended within 8 moves")
+    sums = pis.sum(dim=-1)
+    if not torch.allclose(sums, torch.ones_like(sums), atol=1e-5):
+        raise AssertionError("pi rows do not sum to 1")
+    for t in range(MOVES):
+        board = traj.boards[t].reshape(BATCH, -1)
+        if not torch.equal((board != 0).sum(dim=1),
+                           torch.full((BATCH,), t, device=board.device)):
+            raise AssertionError(f"ply {t}: wrong stone count")
+        if (pis[t][board != 0] != 0).any():
+            raise AssertionError(f"ply {t}: pi on an occupied point")
+        acts = traj.actions[t].long()
+        if (board.gather(1, acts[:, None]) != 0).any():
+            raise AssertionError(f"ply {t}: a move on an occupied point")
+    if traj.root_qs[:MOVES].abs().max() > 1.0 + 1e-6:
+        raise AssertionError("root_q outside [-1, 1]")
+    log(f"trajectories: {MOVES} plies x {BATCH} games checked; "
+        f"root_q mean {float(traj.root_qs[:MOVES].mean()):.4f}, pi max mean "
+        f"{float(pis.max(dim=-1).values.mean()):.4f}")
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,132 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``; each test skips when ``torch.cuda.is_available()`` is false,
+which it decides inside the test so that every pytest worker collects the
+same tests.  This file imports no JAX: the card's machine has none, and there
+it runs without the repo's conftest (which imports JAX):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
+"""
+
+import pytest
+import torch
+
+from alphazero_gomoku_tpu_torch.games import make_env
+from alphazero_gomoku_tpu_torch.models import (
+    NetConfig,
+    bundle_of,
+    init_params,
+    make_eval_fn,
+)
+from alphazero_gomoku_tpu_torch.ops import tree_kernels as tk
+from alphazero_gomoku_tpu_torch.search import MCTSConfig
+from alphazero_gomoku_tpu_torch.search.tree_packed import (
+    run_mcts_packed,
+    run_mcts_packed_with_tree,
+)
+
+pytestmark = pytest.mark.cuda
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _random_states(env, batch, plies, seed, dev):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    states = env.init_batch(batch, dev)
+    for _ in range(plies):
+        legal = env.legal_mask(states).float()
+        u = torch.rand(legal.shape, generator=g, device=dev)
+        acts = torch.argmax(torch.where(legal > 0, u, -1.0), dim=1)
+        states = env.step_safe(states, acts)
+    return states
+
+
+def _grown_tree(dev, size=15, batch=64, sims=48, capacity=402, depth=56,
+                plies=6, fpu="zero"):
+    env = make_env("gomoku", size)
+    cfg = NetConfig(board_size=size, action_size=size * size,
+                    n_res_blocks=2, channels=32)
+    net = bundle_of(cfg, *init_params(cfg, 0), device=dev)
+    mcfg = MCTSConfig(n_simulations=sims, max_nodes=capacity, max_depth=depth,
+                      cpuct=1.0, dirichlet_alpha=0.05, dirichlet_epsilon=0.15,
+                      fpu_mode=fpu)
+    states = _random_states(env, batch, plies, 1, dev)
+    moves = torch.full((batch,), plies, dtype=torch.int32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    _, _, packed = run_mcts_packed_with_tree(env, mcfg, make_eval_fn(), net,
+                                             states, moves, g)
+    return mcfg, tk.packed_layout(size * size, capacity), packed
+
+
+@pytest.mark.parametrize("fpu", ["zero", "parent"])
+def test_select_walk_kernel_equals_plain(fpu):
+    dev = _card()
+    mcfg, layout, packed = _grown_tree(dev, fpu=fpu)
+    for depth in (mcfg.depth_limit, 2):
+        got = tk.select_walk(packed, layout, 1.0, depth, fpu == "parent")
+        want = tk.select_walk_plain(packed, layout, 1.0, depth,
+                                    fpu == "parent")
+        torch.cuda.synchronize()
+        for name, x, y in zip(("leaf", "action", "path_nodes",
+                               "path_actions", "path_len"), got, want):
+            assert torch.equal(x, y), name
+
+
+def test_backup_paths_kernel_equals_plain():
+    dev = _card()
+    mcfg, layout, packed = _grown_tree(dev)
+    leaf, action, pnodes, pacts, plen = tk.select_walk(
+        packed, layout, 1.0, mcfg.depth_limit)
+    b = packed.shape[0]
+    g = torch.Generator(device=dev).manual_seed(3)
+    values = torch.rand(b, generator=g, device=dev) * 2 - 1
+    priors = torch.rand((b, layout.num_actions), generator=g, device=dev)
+    done = torch.rand(b, generator=g, device=dev) < 0.2
+    slot = mcfg.n_simulations + 1
+    args = (pnodes, pacts, plen, values, action >= 0, slot, layout, priors,
+            done)
+    got = tk.backup_paths(packed.clone(), *args)
+    want = tk.backup_paths_plain(packed.clone(), *args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert not torch.equal(got, packed)
+
+
+def test_search_pi_kernels_equal_plain_and_count_launches():
+    dev = _card()
+    size, batch, sims = 15, 16, 24
+    env = make_env("gomoku", size)
+    cfg = NetConfig(board_size=size, action_size=size * size,
+                    n_res_blocks=2, channels=32)
+    net = bundle_of(cfg, *init_params(cfg, 0), device=dev)
+    mcfg = MCTSConfig(n_simulations=sims, cpuct=1.0, dirichlet_alpha=0.05,
+                      dirichlet_epsilon=0.15, max_depth=56)
+    states = _random_states(env, batch, 4, 5, dev)
+    moves = torch.full((batch,), 4, dtype=torch.int32, device=dev)
+    pis = []
+    for ops in (tk.KERNELS, tk.PLAIN):
+        tk.reset_launch_counts()
+        g = torch.Generator(device=dev).manual_seed(7)
+        pis.append(run_mcts_packed(env, mcfg, make_eval_fn(), net, states,
+                                   moves, g, ops=ops)[0])
+        if ops is tk.KERNELS:
+            assert tk.select_walk.launches == sims
+            assert tk.backup_paths.launches == sims
+    assert torch.equal(pis[0], pis[1])
+
+
+def test_kernel_wrappers_raise_on_bad_cuda_inputs():
+    dev = _card()
+    layout = tk.packed_layout(81, 6)
+    packed = tk.init_packed(2, layout, dev)
+    with pytest.raises(ValueError):
+        tk.select_walk(packed[:, :8], layout, 1.0, 4)
+    with pytest.raises(TypeError):
+        tk.select_walk(packed.double(), layout, 1.0, 4)

@@ -1,0 +1,85 @@
+"""Shared helpers of the port's parity tests (JAX package vs PyTorch port).
+
+Data passes between the two frameworks as numpy arrays made from a seed.
+"""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from alphazero_gomoku_tpu.games.gomoku import GomokuState as JaxState
+from alphazero_gomoku_tpu_torch.games.gomoku import GomokuState as TorchState
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Run each port test on one torch thread (autouse where imported).
+
+    The suite runs in several pytest workers at once; torch's default of a
+    thread per core in every worker oversubscribed the CPU and made these
+    tests 2-5x slower.  The previous count is restored after the test.
+    """
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def to_torch_state(st) -> TorchState:
+    return TorchState(*(torch.from_numpy(np.array(x)) for x in st))
+
+
+def to_jax_state(st) -> JaxState:
+    return JaxState(*(jnp.asarray(x.cpu().numpy()) for x in st))
+
+
+def random_jax_states(env, batch, plies, seed):
+    """Advance a batch of JAX games by random legal moves (numpy-driven)."""
+    states = env.init_batch(batch)
+    rng = np.random.default_rng(seed)
+    legal_mask = jax.jit(jax.vmap(env.legal_mask))
+    step = jax.jit(jax.vmap(env.step_safe))
+    for _ in range(plies):
+        legal = np.asarray(legal_mask(states))
+        acts = np.array([rng.choice(np.flatnonzero(row)) if row.any() else 0
+                         for row in legal], dtype=np.int32)
+        states = step(states, jnp.asarray(acts))
+    return states
+
+
+class TableEval:
+    """An eval function both frameworks compute bit for bit.
+
+    Priors and value are rows of fixed numpy tables, indexed by an integer
+    feature of the position: ``sum(me * W1 + opp * W2) mod K`` over the board,
+    with integer weight maps W1, W2 (exact in f32).  Nothing is summed in
+    floating point in an order that could differ, so both searches see the
+    same numbers and their pi must be equal.
+    """
+
+    def __init__(self, size, seed=0, k=97):
+        rng = np.random.default_rng(seed)
+        a = size * size
+        self.k = k
+        self.w1 = rng.integers(1, 50, (size, size)).astype(np.float32)
+        self.w2 = rng.integers(1, 50, (size, size)).astype(np.float32)
+        raw = rng.random((k, a)) ** 3 + 1e-3
+        self.probs = (raw / raw.sum(1, keepdims=True)).astype(np.float32)
+        self.values = rng.uniform(-0.9, 0.9, (k, 1)).astype(np.float32)
+
+    def jax(self, params, obs):
+        del params
+        f = jnp.sum(obs[..., 0] * self.w1 + obs[..., 1] * self.w2, axis=(1, 2))
+        idx = jnp.mod(f, self.k).astype(jnp.int32)
+        return jnp.asarray(self.probs)[idx], jnp.asarray(self.values)[idx]
+
+    def torch(self, params, obs):
+        del params
+        w1 = torch.from_numpy(self.w1).to(obs.device)
+        w2 = torch.from_numpy(self.w2).to(obs.device)
+        f = (obs[..., 0] * w1 + obs[..., 1] * w2).sum(dim=(1, 2))
+        idx = torch.remainder(f, self.k).long()
+        return (torch.from_numpy(self.probs).to(obs.device)[idx],
+                torch.from_numpy(self.values).to(obs.device)[idx])
