@@ -1,1 +1,2 @@
-"""Line detection and the packed-tree kernels (CUDA, with plain versions)."""
+"""Line detection, the packed-tree kernels and the fused network tower (CUDA,
+with plain versions), and their build."""

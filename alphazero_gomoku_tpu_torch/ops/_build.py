@@ -4,10 +4,15 @@ Each source in ``csrc/`` is compiled at first use, on the machine with the
 card, into ``alphazero_gomoku_tpu_torch/build/`` (listed in ``.gitignore``)
 with a plain C interface:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
-         -shared -Xcompiler -fPIC -Xptxas -v -o build/<name>-<hash>.so <src>
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -shared -Xcompiler -fPIC -Xptxas -v <SOURCE_FLAGS[name]>
+         -o build/<name>-<hash>.so <src>
 
-No PyTorch headers are included, so a build takes seconds.  The library name
+``SOURCE_FLAGS`` adds flags per source: the tree kernels build with
+``--fmad=false``, so that no multiply and add are contracted into an FMA and
+the walk rounds as its plain version does; the network kernels build
+without it.  No PyTorch headers are included, so a build takes seconds.
+:func:`build_all` starts one ``nvcc`` per source at once.  The library name
 carries a hash of the source and the flags, so an edit rebuilds.  Paths are
 resolved from this file, not from the working directory.
 """
@@ -23,7 +28,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, Iterable, List
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -31,8 +36,12 @@ BUILD_DIR = PACKAGE_DIR / "build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+SOURCE_FLAGS = {
+    "tree_kernels": ("--fmad=false",),
+    "fused_net": (),
+}
 
 
 @dataclasses.dataclass
@@ -61,36 +70,67 @@ def _nvcc() -> str:
                        "kernels are built on the machine with the card")
 
 
-def build(name: str) -> BuiltLibrary:
-    """Compile ``csrc/<name>.cu`` (once per process and per content) and load it."""
-    if name in _LOADED:
-        return _LOADED[name]
+def _flags(name: str):
+    if name not in SOURCE_FLAGS:
+        raise ValueError(f"no kernel source named {name!r}")
+    return NVCC_FLAGS + SOURCE_FLAGS[name]
+
+
+def _library_path(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
-    # nvcc's seconds and ptxas lines, kept beside the library for reuse
-    report = out.with_suffix(".json")
-    reused = out.exists() and report.exists()
-    if not reused:
+    digest = hashlib.sha256(src.read_bytes() + " ".join(_flags(name)).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build_all(names: Iterable[str]) -> Dict[str, BuiltLibrary]:
+    """Compile ``csrc/<name>.cu`` for each name (once per process and per
+    content), all ``nvcc`` processes running at once, and load them."""
+    names = list(dict.fromkeys(names))
+    # nvcc's seconds and ptxas lines are kept beside each library for reuse
+    todo = [n for n in names if n not in _LOADED
+            and not (_library_path(n).exists()
+                     and _library_path(n).with_suffix(".json").exists())]
+    running = {}
+    if todo:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    for name in todo:
+        out = _library_path(name)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                              capture_output=True, text=True)
+        proc = subprocess.Popen(
+            [_nvcc(), *_flags(name), "-o", str(tmp),
+             str(CSRC_DIR / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, tmp, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, t0) in running.items():
+        output, _ = proc.communicate()
         seconds = time.perf_counter() - t0
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src} (exit {proc.returncode}):"
-                               f"\n{proc.stdout}\n{proc.stderr}")
-        ptxas = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
-                 if "ptxas" in ln]
+            failed.append(f"nvcc failed on csrc/{name}.cu (exit "
+                          f"{proc.returncode}):\n{output}")
+            continue
+        out = _library_path(name)
+        report = out.with_suffix(".json")
+        ptxas = [ln.strip() for ln in output.splitlines() if "ptxas" in ln]
         # atomic renames: a concurrent build never sees a half-written file
         tmp_report = report.with_name(f"{report.name}.{os.getpid()}.tmp")
         tmp_report.write_text(json.dumps({"seconds": seconds,
                                           "ptxas": ptxas}))
         os.replace(tmp, out)
         os.replace(tmp_report, report)
-    info = json.loads(report.read_text())
-    built = BuiltLibrary(ctypes.CDLL(str(out)), out, info["seconds"],
-                         info["ptxas"], reused)
-    _LOADED[name] = built
-    return built
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for name in names:
+        if name in _LOADED:
+            continue
+        out = _library_path(name)
+        info = json.loads(out.with_suffix(".json").read_text())
+        _LOADED[name] = BuiltLibrary(ctypes.CDLL(str(out)), out,
+                                     info["seconds"], info["ptxas"],
+                                     reused=name not in running)
+    return {name: _LOADED[name] for name in names}
+
+
+def build(name: str) -> BuiltLibrary:
+    """Compile ``csrc/<name>.cu`` (once per process and per content) and load it."""
+    return build_all([name])[name]

@@ -1,4 +1,5 @@
-"""The packed search tree and its two kernels: ``select_walk`` and ``backup_paths``.
+"""The packed search tree and its kernels: ``select_walk``, ``gumbel_select_walk``
+and ``backup_paths``.
 
 Counterpart of ``alphazero_gomoku_tpu/ops/tree_kernels.py``.  The tree of B
 games is one f32 tensor ``[B, n_nodes * GROUP, seg]`` in the JAX package's
@@ -17,7 +18,8 @@ Each kernel has three parts here:
   - ``*_plain``: the function in plain PyTorch, batched over lanes.  The CPU
     tests hold it against the JAX package, and ``chip_smoke.py`` holds the
     kernel against it on the card.
-  - ``select_walk`` / ``backup_paths``: the wrappers with the JAX signatures.
+  - ``select_walk`` / ``gumbel_select_walk`` / ``backup_paths``: the
+    wrappers with the JAX signatures.
     A tensor on the CPU goes to the plain version; a CUDA tensor goes to the
     hand-written kernel in ``csrc/tree_kernels.cu`` or raises.  Each wrapper
     counts its kernel launches in its ``launches`` attribute.
@@ -44,6 +46,9 @@ SL_N, SL_W, SL_P, SL_C, SL_META = 0, 1, 2, 3, 4
 # action index when no score equals the maximum (only with NaN scores); the
 # JAX kernel's sentinel
 NO_ACTION = 1 << 30
+# the Gumbel kernel keeps each thread's columns in registers: at most 16 per
+# thread of a warp (csrc/tree_kernels.cu, GUMBEL_COLS)
+GUMBEL_MAX_ACTIONS = 16 * 32
 
 
 def _round_up(x: int, m: int) -> int:
@@ -102,25 +107,32 @@ def _butterfly_sum(x: torch.Tensor) -> torch.Tensor:
     return part[:, 0]
 
 
-# ----------------------------------------------------------------------
-# select_walk
-# ----------------------------------------------------------------------
-def select_walk_plain(packed: torch.Tensor, layout: PackedLayout,
-                      cpuct: float, depth_limit: int,
-                      fpu_parent: bool = False):
-    """Plain PyTorch PUCT walk over B packed trees (all lanes per hop).
+def _lowest_argmax(scores: torch.Tensor) -> torch.Tensor:
+    """Lowest index of each row's maximum (``NO_ACTION`` if none equals it,
+    as with NaN scores), written out rather than left to ``argmax``."""
+    iota = torch.arange(scores.shape[1], device=scores.device,
+                        dtype=torch.int32)
+    mx = scores.max(dim=1, keepdim=True).values
+    return torch.where(scores == mx, iota, NO_ACTION).min(dim=1).values
 
-    Same outputs as :func:`select_walk`.  Path rows at and beyond a lane's
-    ``path_len`` are -1.
+
+def _walk_plain(packed: torch.Tensor, layout: PackedLayout, depth_limit: int,
+                fan: int, choose):
+    """The hop loop of the plain walks, all lanes per hop.
+
+    Lane ``l`` walks tree ``l // fan`` from its root.  Per hop
+    ``choose(tile [L, GROUP, seg], h)`` gives each lane's action; a lane
+    stops on a terminal node (recording nothing), on an unexpanded edge (the
+    leaf to expand) or at the depth cap (leaf = the node reached, action -1).
+    Path rows at and beyond a lane's ``path_len`` are -1.
     """
-    b = packed.shape[0]
+    b = packed.shape[0] * fan
     a = layout.num_actions
     dev = packed.device
     tiles = node_tiles(packed, layout)
     n_max = layout.n_nodes - 1
     lanes = torch.arange(b, device=dev)
-    iota = torch.arange(a, device=dev, dtype=torch.int32)
-    cpuct_t = torch.tensor(cpuct, dtype=torch.float32, device=dev)
+    trees = lanes // fan
 
     nodes = torch.zeros(b, dtype=torch.int32, device=dev)
     walking = torch.ones(b, dtype=torch.bool, device=dev)
@@ -133,26 +145,13 @@ def select_walk_plain(packed: torch.Tensor, layout: PackedLayout,
     for h in range(depth_limit):
         if not bool(walking.any()):
             break
-        tile = tiles[lanes, nodes.long().clamp(0, n_max)]      # [B, GROUP, seg]
-        n = tile[:, SL_N, :a]
-        w = tile[:, SL_W, :a]
-        p = tile[:, SL_P, :a]
+        tile = tiles[trees, nodes.long().clamp(0, n_max)]      # [L, GROUP, seg]
         done = tile[:, SL_META, 0] > 0.5
-
-        sum_n = n.sum(dim=1, keepdim=True)  # integer-valued: exact in any order
-        if fpu_parent:
-            parent_q = _butterfly_sum(w)[:, None] / torch.clamp(sum_n, min=1.0)
-            q = torch.where(n > 0.0, w / torch.clamp(n, min=1.0), parent_q)
-        else:
-            q = w / (1.0 + n)
-        sqrt_sum = torch.sqrt(sum_n)
-        scores = q + cpuct_t * torch.clamp(p, min=0.0) * sqrt_sum / (1.0 + n)
-        scores = torch.where(p >= 0.0, scores, NEG_INF)
-        # lowest index of the maximum, written out rather than left to argmax
-        mx = scores.max(dim=1, keepdim=True).values
-        best = torch.where(scores == mx, iota, NO_ACTION).min(dim=1).values
-        in_range = best < a
-        child = tile[lanes, SL_C, best.long().clamp(max=a - 1)].to(torch.int32)
+        best = choose(tile, h)
+        # JAX reads the child through a one-hot sum, which gives 0 for an
+        # action outside [0, A)
+        in_range = (best >= 0) & (best < a)
+        child = tile[lanes, SL_C, best.long().clamp(0, a - 1)].to(torch.int32)
         child = torch.where(in_range, child, 0)
 
         stop_done = walking & done
@@ -170,6 +169,37 @@ def select_walk_plain(packed: torch.Tensor, layout: PackedLayout,
     # lanes still walking hit the depth cap: leaf = the node reached, action -1
     leaf = torch.where(walking, nodes, leaf)
     return leaf, action, pnodes, pacts, plen
+
+
+# ----------------------------------------------------------------------
+# select_walk
+# ----------------------------------------------------------------------
+def select_walk_plain(packed: torch.Tensor, layout: PackedLayout,
+                      cpuct: float, depth_limit: int,
+                      fpu_parent: bool = False):
+    """Plain PyTorch PUCT walk over B packed trees (all lanes per hop).
+
+    Same outputs as :func:`select_walk`.  Path rows at and beyond a lane's
+    ``path_len`` are -1.
+    """
+    a = layout.num_actions
+    cpuct_t = torch.tensor(cpuct, dtype=torch.float32, device=packed.device)
+
+    def choose(tile, h):
+        n = tile[:, SL_N, :a]
+        w = tile[:, SL_W, :a]
+        p = tile[:, SL_P, :a]
+        sum_n = n.sum(dim=1, keepdim=True)  # integer-valued: exact in any order
+        if fpu_parent:
+            parent_q = _butterfly_sum(w)[:, None] / torch.clamp(sum_n, min=1.0)
+            q = torch.where(n > 0.0, w / torch.clamp(n, min=1.0), parent_q)
+        else:
+            q = w / (1.0 + n)
+        sqrt_sum = torch.sqrt(sum_n)
+        scores = q + cpuct_t * torch.clamp(p, min=0.0) * sqrt_sum / (1.0 + n)
+        return _lowest_argmax(torch.where(p >= 0.0, scores, NEG_INF))
+
+    return _walk_plain(packed, layout, depth_limit, 1, choose)
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device):
@@ -205,6 +235,9 @@ def _library() -> ctypes.CDLL:
         lib.backup_paths_launch.argtypes = [p, i, i, i, i, i, p, p, p, p, p,
                                             p, p, i, p]
         lib.backup_paths_launch.restype = i
+        lib.gumbel_select_walk_launch.argtypes = [p, p, i, i, i, i, i, f, f,
+                                                  i, p, p, p, p, p, p]
+        lib.gumbel_select_walk_launch.restype = i
         lib._argtypes_set = True
     return lib
 
@@ -259,6 +292,174 @@ def select_walk(packed: torch.Tensor, layout: PackedLayout, cpuct: float,
 
 
 select_walk.launches = 0
+
+
+# ----------------------------------------------------------------------
+# gumbel_select_walk
+# ----------------------------------------------------------------------
+# exp and log as fixed sequences of IEEE-rounded float32 operations (no
+# library call), written the same way in csrc/tree_kernels.cu: the walk's
+# argmax must come out the same in the kernel and here, and library exp/log
+# may differ in the last bit between CUDA, the CPU and nvcc's flags.  Both
+# are within 1.5 ulp of the true value.  Constants are exact float32 values.
+_F = float.fromhex
+_LOG2E = _F("0x1.715476p+0")
+_EXP_LN2_HI = _F("0x1.62e400p-1")     # low bits zero: k * hi is exact
+_EXP_LN2_LO = _F("0x1.7f7d1cp-20")
+# Taylor coefficients of exp(r), |r| <= ln2 / 2, degree 7 first
+_EXP_C = tuple(_F(x) for x in (
+    "0x1.a01a02p-13", "0x1.6c16c2p-10", "0x1.111112p-7", "0x1.555556p-5",
+    "0x1.555556p-3", "0x1.000000p-1", "0x1.000000p+0", "0x1.000000p+0"))
+_SQRT2 = _F("0x1.6a09e6p+0")
+_LOG_LN2_HI = _F("0x1.62e300p-1")
+_LOG_LN2_LO = _F("0x1.2fefa2p-17")
+# log(1+f) = f - hfsq + s*(hfsq + R(s^2)),  s = f/(2+f)  (as in fdlibm logf)
+_LOG_C = tuple(_F(x) for x in (
+    "0x1.f13c4cp-3", "0x1.23d3dcp-2", "0x1.99c27p-2", "0x1.555554p-1"))
+
+
+def _pow2(k: torch.Tensor) -> torch.Tensor:
+    """2**k as float32 for int32 ``k`` in [-126, 127], from its bits."""
+    return ((k + 127) << 23).view(torch.float32)
+
+
+def exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """exp of float32 ``x`` (clamped to [-104, 88]), the kernel's ``exp_f32``."""
+    x = torch.clamp(x, min=-104.0, max=88.0)
+    k = torch.round(x * _LOG2E)                       # half to even, as rintf
+    r = x - k * _EXP_LN2_HI
+    r = r - k * _EXP_LN2_LO
+    p = torch.full_like(r, _EXP_C[0])
+    for c in _EXP_C[1:]:
+        p = p * r + c
+    ki = k.to(torch.int32)
+    k1 = torch.clamp(ki, min=-125)
+    # two exact scalings; only the second can round (into a subnormal)
+    return p * _pow2(k1) * _pow2(ki - k1)
+
+
+def log_f32(x: torch.Tensor) -> torch.Tensor:
+    """log of positive normal float32 ``x``, the kernel's ``log_f32``."""
+    bits = x.view(torch.int32)
+    e = ((bits >> 23) & 0xff) - 127
+    m = ((bits & 0x7fffff) | 0x3f800000).view(torch.float32)   # [1, 2)
+    big = m > _SQRT2
+    m = torch.where(big, m * 0.5, m)
+    e = e + big.to(torch.int32)
+    f = m - 1.0
+    s = f / (f + 2.0)
+    z = s * s
+    r = torch.full_like(z, _LOG_C[0])
+    for c in _LOG_C[1:]:
+        r = r * z + c
+    r = r * z
+    hfsq = (f * 0.5) * f
+    ef = e.to(torch.float32)
+    return ef * _LOG_LN2_HI - ((hfsq - (s * (hfsq + r) + ef * _LOG_LN2_LO))
+                               - f)
+
+
+def gumbel_select_walk_plain(packed: torch.Tensor, root_actions: torch.Tensor,
+                             layout: PackedLayout, depth_limit: int,
+                             c_visit: float, c_scale: float, fan: int = 1):
+    """Plain PyTorch Gumbel walk (all lanes per hop).
+
+    Same outputs as :func:`gumbel_select_walk`.  Each f32 sum over actions is
+    taken in the kernel's order (:func:`_butterfly_sum`), and exp and log
+    are :func:`exp_f32` and :func:`log_f32`, so the two agree exactly.
+    """
+    a = layout.num_actions
+
+    def choose(tile, h):
+        if h == 0:
+            return root_actions
+        n = tile[:, SL_N, :a]
+        w = tile[:, SL_W, :a]
+        p_signed = tile[:, SL_P, :a]
+        v_node = tile[:, SL_META, 1]
+        legal = p_signed >= 0.0
+        p = torch.clamp(p_signed, min=0.0)
+        sum_n = n.sum(dim=1)                # integer-valued: exact in any order
+        q = w / torch.clamp(n, min=1.0)
+        visited = n > 0.0
+        p_vis = _butterfly_sum(torch.where(visited, p, 0.0))
+        w_q = _butterfly_sum(torch.where(visited, p * q, 0.0)) \
+            / torch.clamp(p_vis, min=1e-8)
+        v_mix = (v_node + sum_n * w_q) / (1.0 + sum_n)
+        v_mix = torch.where(p_vis > 1e-8, v_mix, v_node)
+        comp_q = torch.where(visited, q, v_mix[:, None])
+
+        logits = log_f32(torch.clamp(p, min=1e-30))
+        coef = (n.max(dim=1).values + c_visit) * c_scale
+        sm_in = torch.where(legal, logits + coef[:, None] * comp_q, NEG_INF)
+        sm_max = sm_in.max(dim=1, keepdim=True).values
+        e = torch.where(legal, exp_f32(sm_in - sm_max), 0.0)
+        pi_prime = e / torch.clamp(_butterfly_sum(e), min=1e-30)[:, None]
+        scores = torch.where(legal, pi_prime - n / (1.0 + sum_n)[:, None],
+                             NEG_INF)
+        return _lowest_argmax(scores)
+
+    return _walk_plain(packed, layout, depth_limit, fan, choose)
+
+
+def gumbel_select_walk(packed: torch.Tensor, root_actions: torch.Tensor,
+                       layout: PackedLayout, depth_limit: int,
+                       c_visit: float, c_scale: float, fan: int = 1
+                       ) -> Tuple[torch.Tensor, ...]:
+    """Gumbel walk over B packed trees with per-lane forced root actions.
+
+    The hop at depth 0 takes the lane's ``root_actions`` entry; deeper hops
+    take ``argmax(pi' - N / (1 + sum N))``, lowest index on ties, with
+    ``pi' = softmax(log max(P, 1e-30) + (c_visit + max N) * c_scale * Q)``
+    over legal actions and the completed Q: ``W / N`` where visited, else
+    the node's value (meta column 1) mixed with the prior-weighted mean Q of
+    the visited actions.  Stops and path records as in :func:`select_walk`.
+
+    ``root_actions`` is i32 ``[B * fan]``: lane ``l`` walks tree ``l // fan``
+    (read-only, several walks per tree: the round-parallel search) and every
+    output is sized ``[B * fan]`` / ``[depth, B * fan]``.
+
+    CPU tensors take :func:`gumbel_select_walk_plain`; CUDA tensors the
+    kernel.
+    """
+    b = _check_packed(packed, layout)
+    if depth_limit < 1:
+        raise ValueError(f"depth_limit={depth_limit} < 1")
+    if fan < 1:
+        raise ValueError(f"fan={fan} < 1")
+    lanes = b * fan
+    _check(root_actions, "root_actions", torch.int32, (lanes,), packed.device)
+    if packed.device.type == "cpu":
+        return gumbel_select_walk_plain(packed, root_actions, layout,
+                                        depth_limit, c_visit, c_scale, fan)
+    if packed.device.type != "cuda":
+        raise ValueError(
+            f"gumbel_select_walk: unsupported device {packed.device}")
+    if layout.num_actions > GUMBEL_MAX_ACTIONS:
+        raise ValueError(f"gumbel_select_walk takes at most "
+                         f"{GUMBEL_MAX_ACTIONS} actions, got "
+                         f"{layout.num_actions}")
+    lib = _library()
+    dev = packed.device
+
+    def out(*shape):
+        return torch.empty(shape, dtype=torch.int32, device=dev)
+
+    leaf, action, plen = out(lanes), out(lanes), out(lanes)
+    pnodes, pacts = out(depth_limit, lanes), out(depth_limit, lanes)
+    with torch.cuda.device(dev):
+        err = lib.gumbel_select_walk_launch(
+            packed.data_ptr(), root_actions.data_ptr(), b, fan,
+            layout.n_nodes, layout.seg, layout.num_actions, float(c_visit),
+            float(c_scale), depth_limit, leaf.data_ptr(), action.data_ptr(),
+            pnodes.data_ptr(), pacts.data_ptr(), plen.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "gumbel_select_walk")
+    gumbel_select_walk.launches += 1
+    return leaf, action, pnodes, pacts, plen
+
+
+gumbel_select_walk.launches = 0
 
 
 # ----------------------------------------------------------------------
@@ -375,6 +576,7 @@ backup_paths.launches = 0
 
 def reset_launch_counts():
     select_walk.launches = 0
+    gumbel_select_walk.launches = 0
     backup_paths.launches = 0
 
 
@@ -383,9 +585,11 @@ class TreeOps(NamedTuple):
 
     select_walk: object
     backup_paths: object
+    gumbel_select_walk: object
 
 
-KERNELS = TreeOps(select_walk, backup_paths)
+KERNELS = TreeOps(select_walk, backup_paths, gumbel_select_walk)
 # the plain versions on any device: chip_smoke.py runs a search with these on
 # the card to hold the kernel path's pi against them
-PLAIN = TreeOps(select_walk_plain, backup_paths_plain)
+PLAIN = TreeOps(select_walk_plain, backup_paths_plain,
+                gumbel_select_walk_plain)

@@ -1,5 +1,9 @@
-"""PUCT search on the packed node-tile tree."""
+"""PUCT and Gumbel search on the packed node-tile tree."""
 
+from alphazero_gomoku_tpu_torch.search.gumbel import (  # noqa: F401
+    halving_schedule,
+    run_gumbel_mcts,
+)
 from alphazero_gomoku_tpu_torch.search.tree import (  # noqa: F401
     MCTSConfig,
     run_mcts_with_q,

@@ -1,4 +1,4 @@
-"""PUCT search configuration, root priors and noise, and the search entry point.
+"""Search configuration, root priors and noise, and the search entry point.
 
 Counterpart of the parts of ``alphazero_gomoku_tpu/search/tree.py`` that the
 packed search uses: ``MCTSConfig``, ``symmetric_dirichlet``,
@@ -37,14 +37,24 @@ EvalFn = Callable[[Any, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 class MCTSConfig:
     """Search settings; field names and defaults as in the JAX ``MCTSConfig``.
 
-    Of the JAX fields, the packed PUCT search reads ``n_simulations``,
-    ``cpuct``, the ``dirichlet_*`` and ``add_noise`` fields, ``max_nodes``,
-    ``max_depth``, ``fpu_mode`` and ``terminal_value_mode``.  The port has
-    only the packed search, so there is no ``backend`` field.  The other
-    fields name searches that are not ported yet, and a value other than the
-    default raises: subtree reuse (``reuse_budget``) and k-leaf search
-    (``leaves_per_sim``) wait for ROADMAP Queue A item 11, Gumbel search
-    (``search="gumbel"``) for item 7.
+    The packed PUCT search reads ``n_simulations``, ``cpuct``, the
+    ``dirichlet_*`` and ``add_noise`` fields, ``max_nodes``, ``max_depth``,
+    ``fpu_mode`` and ``terminal_value_mode``; the Gumbel search
+    (``search="gumbel"``, ``search/gumbel.py``) reads ``n_simulations``,
+    ``max_nodes``, ``max_depth``, ``terminal_value_mode`` and the
+    ``gumbel_*`` fields.  The port has only the packed search, so there is
+    no ``backend`` field.  The other fields name searches that are not
+    ported yet, and a value other than the default raises: subtree reuse
+    (``reuse_budget``) and k-leaf search (``leaves_per_sim``) wait for
+    ROADMAP Queue A item 11.
+
+    ``gumbel_round_parallel`` batches each halving round's simulations (one
+    per surviving root action) into one walk and one network call.  It
+    replays the serial search exactly, except where a position has fewer
+    legal moves than the round's candidates: the illegal-candidate fallback
+    then forces the same root action twice in one round, and the second
+    walk expands a copy of the first's leaf instead of going a ply deeper
+    (as in the JAX package, ``search/tree.py:137-152`` there).
     """
 
     n_simulations: int
@@ -60,6 +70,10 @@ class MCTSConfig:
     terminal_value_mode: str = "always_loss"
     reuse_budget: int = 0
     search: str = "puct"
+    gumbel_max_considered: int = 16   # root actions entering halving
+    gumbel_c_visit: float = 50.0      # sigma(q) = (c_visit + maxN)*c_scale*q
+    gumbel_c_scale: float = 1.0
+    gumbel_round_parallel: bool = False
 
     def __post_init__(self):
         if self.fpu_mode not in ("zero", "parent"):
@@ -67,11 +81,15 @@ class MCTSConfig:
         if self.terminal_value_mode not in ("always_loss", "signed"):
             raise ValueError("unknown terminal_value_mode: "
                              f"{self.terminal_value_mode!r}")
-        if self.search == "gumbel":
-            raise NotImplementedError(
-                "Gumbel search is not ported yet (ROADMAP Queue A item 7)")
-        if self.search != "puct":
+        if self.search not in ("puct", "gumbel"):
             raise ValueError(f"unknown search: {self.search!r}")
+        if self.search == "gumbel":
+            if self.leaves_per_sim > 1:
+                raise ValueError("gumbel search does not support "
+                                 "leaves_per_sim > 1")
+        elif self.gumbel_round_parallel:
+            raise ValueError(
+                "gumbel_round_parallel requires search='gumbel'")
         if self.leaves_per_sim != 1:
             raise NotImplementedError(
                 "k-leaf search (leaves_per_sim > 1) is not ported yet "
@@ -190,13 +208,23 @@ def run_mcts_with_q(env, cfg: MCTSConfig, eval_fn: EvalFn, net_params,
                     root_states, move_numbers: torch.Tensor,
                     generator: Optional[torch.Generator] = None,
                     noise: Optional[torch.Tensor] = None):
-    """Batched PUCT search: ``(pi [B, A], root_q [B])``.
+    """Batched search: ``(pi [B, A], root_q [B])``.
+
+    ``cfg.search == "gumbel"`` runs Gumbel sequential halving
+    (``search/gumbel.py``), whose ``pi`` is the improved-policy target; it
+    draws its root Gumbel noise from ``generator`` and ignores
+    ``move_numbers`` and ``noise``.
 
     Every batch size runs the packed search.  The JAX package sends batches
     below 8 to its XLA array tree because its Pallas kernels need 8 lanes;
     the two are bit-identical there (``tests/test_tree_kernels.py``), and the
     CUDA kernels have no lane floor, so the port needs no second search.
     """
+    if cfg.search == "gumbel":
+        from alphazero_gomoku_tpu_torch.search.gumbel import run_gumbel_mcts
+        pi, root_q, _ = run_gumbel_mcts(env, cfg, eval_fn, net_params,
+                                        root_states, generator)
+        return pi, root_q
     from alphazero_gomoku_tpu_torch.search.tree_packed import run_mcts_packed
     return run_mcts_packed(env, cfg, eval_fn, net_params, root_states,
                            move_numbers, generator, noise=noise)

@@ -1,4 +1,4 @@
-"""Lockstep batched self-play."""
+"""Lockstep batched self-play (PUCT or Gumbel)."""
 
 from alphazero_gomoku_tpu_torch.selfplay.runner import (  # noqa: F401
     SelfPlayConfig,

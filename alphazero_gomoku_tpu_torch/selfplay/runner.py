@@ -10,13 +10,16 @@ Semantics as in the JAX runner:
   - temperature ``temp = max(0, 1 - move/temp_threshold)``;
   - moves sampled from ``pi^(1/T)`` (the Gumbel-max trick), argmax when
     T <= 0, and argmax when a sample lands on an illegal action;
+  - with ``search="gumbel"`` the move is the sequential-halving winner (no
+    temperature sampling: exploration is the search's root Gumbel sample),
+    and the recorded pi is the search's improved-policy target;
   - per-move records of the board before the move, the player to move, pi,
     the root value and an ``active`` flag; finished games are frozen by
     ``step_safe`` and their later records marked inactive.
 
 Not ported yet, each refused with an error: subtree reuse, playout cap
-randomization (``pcr_cheap_sims``), the random opening
-(``opening_random_moves``) and Gumbel search.  ``collect_examples`` and the
+randomization (``pcr_cheap_sims``) and the random opening
+(``opening_random_moves``).  ``collect_examples`` and the
 symmetry augmentation wait for the training slice.
 """
 
@@ -28,6 +31,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from alphazero_gomoku_tpu_torch.device import resolve_device
+from alphazero_gomoku_tpu_torch.search.gumbel import run_gumbel_mcts
 from alphazero_gomoku_tpu_torch.search.tree import (
     EvalFn,
     MCTSConfig,
@@ -104,7 +108,8 @@ def play_games(env, cfg: SelfPlayConfig, eval_fn: EvalFn, net_params,
     """Play ``cfg.batch_games`` lockstep games until all are done or
     ``max_moves`` moves are played.
 
-    ``generator`` (on ``device``) gives the root noise and the move samples.
+    ``generator`` (on ``device``) gives the root noise and the move samples
+    (PUCT), or the root Gumbel noise (Gumbel): one ``[B, A]`` draw per move.
     """
     dev = resolve_device(device)
     batch = cfg.batch_games
@@ -126,17 +131,22 @@ def play_games(env, cfg: SelfPlayConfig, eval_fn: EvalFn, net_params,
         if bool(states.done.all()):
             break
         active = ~states.done
-        move_nums = torch.full((batch,), t, dtype=torch.int32, device=dev)
-        pi, root_q = run_mcts_with_q(env, cfg.mcts, eval_fn, net_params,
-                                     states, move_nums, generator)
-        temp = torch.clamp(
-            1.0 - torch.tensor(t, dtype=torch.float32) / cfg.temp_threshold,
-            min=0.0)
-        legal = env.legal_mask(states)
-        # done games have an all-zero pi; give them a harmless action 0
-        safe_pi = torch.where(active[:, None], pi, 1.0)
-        actions = sample_actions(safe_pi, temp, legal | ~active[:, None],
-                                 generator)
+        if cfg.mcts.search == "gumbel":
+            pi, root_q, winner = run_gumbel_mcts(env, cfg.mcts, eval_fn,
+                                                 net_params, states, generator)
+            actions = torch.where(active, winner, 0)
+        else:
+            move_nums = torch.full((batch,), t, dtype=torch.int32,
+                                   device=dev)
+            pi, root_q = run_mcts_with_q(env, cfg.mcts, eval_fn, net_params,
+                                         states, move_nums, generator)
+            temp = torch.clamp(1.0 - torch.tensor(t, dtype=torch.float32)
+                               / cfg.temp_threshold, min=0.0)
+            legal = env.legal_mask(states)
+            # done games have an all-zero pi; give them a harmless action 0
+            safe_pi = torch.where(active[:, None], pi, 1.0)
+            actions = sample_actions(safe_pi, temp, legal | ~active[:, None],
+                                     generator)
         boards[t] = states.board
         players[t] = states.to_move
         pis[t] = pi

@@ -4,16 +4,23 @@
     python3 chip_smoke.py [--seed N]
 
 Builds the port's CUDA kernels from ``alphazero_gomoku_tpu_torch/csrc`` with
-``nvcc``, holds each kernel against its plain PyTorch version on the card,
-holds a search's pi on the kernels against the same search on the plain
-versions, and then drives the main path: lockstep Gomoku 15x15 self-play
-with the 6x128 ResNet and PUCT@400 at batch 256 (bench config #3 of
-``bench.py``), for 8 moves, with random weights made from ``--seed``.
+``nvcc`` (one process per source, at once), holds each kernel against its
+plain PyTorch version on the card, holds a search on the kernels against the
+same search on the plain versions, and drives the two main paths, with
+random weights made from ``--seed``, lockstep Gomoku 15x15 self-play at
+batch 256 with the 6x128 net:
 
+  - PUCT@400 (bench config #3 of ``bench.py``) on the float32 ``ResNet``,
+    8 moves: kernels ``select_walk`` and ``backup_paths``;
+  - Gumbel@64 with m=16 (bench config #6's search) on the fused bf16 tower,
+    8 moves: kernels ``gumbel_select_walk``, ``backup_paths`` and
+    ``fused_tower``; then 2 moves of its round-parallel form.
+
+Each path's launch counts are set to 0 just before it and read just after.
 Every phase prints its seconds.  Nothing is caught: a failed phase exits
 non-zero.  Without a CUDA card it exits 1 before any result.  The last lines
 are the card's ``nvidia-smi`` name and power limit, a JSON line with each
-kernel's launches on the main path, its error against the plain version and
+kernel's launches on its main path, its error against the plain version and
 its times, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -36,9 +43,15 @@ from alphazero_gomoku_tpu_torch.models import (
     make_eval_fn,
 )
 from alphazero_gomoku_tpu_torch.ops import _build
+from alphazero_gomoku_tpu_torch.ops import fused_net as fn
 from alphazero_gomoku_tpu_torch.ops import tree_kernels as tk
 from alphazero_gomoku_tpu_torch.search import MCTSConfig
+from alphazero_gomoku_tpu_torch.search.gumbel import (
+    halving_schedule,
+    run_gumbel_mcts,
+)
 from alphazero_gomoku_tpu_torch.search.tree_packed import (
+    run_gumbel_packed_with_tree,
     run_mcts_packed,
     run_mcts_packed_with_tree,
 )
@@ -55,9 +68,28 @@ MAIN_MCTS = MCTSConfig(n_simulations=SIMS, cpuct=1.0, add_noise=True,
                        dirichlet_alpha=0.05, dirichlet_epsilon=0.15,
                        dirichlet_moves=10, max_depth=56)
 
+# bench.py:127-137,358-366, config #6's search: Gumbel@64, m=16, depth cap
+# 56, no Dirichlet noise
+GUMBEL_SIMS, GUMBEL_M = 64, 16
+GUMBEL_MCTS = MCTSConfig(n_simulations=GUMBEL_SIMS, search="gumbel",
+                         gumbel_max_considered=GUMBEL_M, add_noise=False,
+                         max_depth=56)
+PARALLEL_MOVES = 2   # moves of the round-parallel Gumbel search
+FAN = 16             # lanes per tree of the fan-out walk held against plain
+# the fused tower against its plain version: both round each conv input to
+# bf16 and sum exact bf16 products in float32, in different orders (tensor
+# cores here); a sum on the other side of a bf16 rounding boundary moves the
+# next conv's input by one bf16 step (2^-8 relative), and such steps add up
+# over the 13 convs.  Stated before the first measurement on the card.
+FUSED_TOL = {"logits": 2e-2, "value": 2e-3}
+# the fused net against the float32 ResNet (tests/test_fused_net.py:75-85)
+BF16_VS_F32_TOL = 0.05
+
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, FP32 FLOP/s
+# (CUDA cores), dense bf16 FLOP/s (tensor cores)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 
 KERNEL_ROWS = {
     "select_walk": dict(
@@ -66,6 +98,12 @@ KERNEL_ROWS = {
     "backup_paths": dict(
         source="alphazero_gomoku_tpu_torch/csrc/tree_kernels.cu",
         replaces="alphazero_gomoku_tpu/ops/tree_kernels.py:780"),
+    "gumbel_select_walk": dict(
+        source="alphazero_gomoku_tpu_torch/csrc/tree_kernels.cu",
+        replaces="alphazero_gomoku_tpu/ops/tree_kernels.py:497"),
+    "fused_tower": dict(
+        source="alphazero_gomoku_tpu_torch/csrc/fused_net.cu",
+        replaces="alphazero_gomoku_tpu/ops/fused_net.py:344"),
 }
 
 
@@ -150,10 +188,11 @@ def max_abs_err(got, want) -> float:
                for g, w in zip(got, want))
 
 
-def bound(nbytes: float, flops: float):
-    """(bound_ms, bound_by): the larger of bytes over HBM and flops over fp32."""
+def bound(nbytes: float, flops: float, flops_per_s: float = FP32_FLOPS_PER_S):
+    """(bound_ms, bound_by): the larger of bytes over HBM and flops over the
+    peak rate of their type (float32 CUDA cores unless given)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -168,6 +207,42 @@ def select_bound(layout, sel, depth):
     nbytes = reads * (3 * a + 2) * 4 + (3 * b + 2 * depth * b) * 4
     flops = reads * a * 8       # sum N, q, the score, the max: ~8 per action
     return bound(nbytes, flops)
+
+
+def gumbel_bound(layout, walk, depth):
+    """What ``gumbel_select_walk`` must move on this tree: per lane its root
+    action; at the root hop the done flag and the child index of the forced
+    action; at each deeper hop the N, W, P rows, the done flag, the node
+    value and one child index; the outputs once.  About 30 float operations
+    per action per deeper hop (completed Q, a log, an exp, the softmax and
+    the score)."""
+    _, action, _, _, plen = (x.long() for x in walk)
+    hops = torch.where(action >= 0, plen, torch.clamp(plen + 1, max=depth))
+    root_hops = int(torch.clamp(hops, max=1).sum())
+    deep_hops = int(hops.sum()) - root_hops
+    lanes = plen.shape[0]
+    a = layout.num_actions
+    nbytes = (lanes * 4 + root_hops * 2 * 4 + deep_hops * (3 * a + 3) * 4
+              + (3 * lanes + 2 * depth * lanes) * 4)
+    return bound(nbytes, deep_hops * a * 30)
+
+
+def tower_flops(cfg: NetConfig, batch: int) -> int:
+    """2 * B * H * W * 9 * Cin * Cout summed over the tower's convs."""
+    c = cfg.channels
+    per_pixel = 9 * (cfg.in_channels * c + 2 * cfg.n_res_blocks * c * c)
+    return 2 * batch * cfg.board_size ** 2 * per_pixel
+
+
+def tower_bound(cfg: NetConfig, batch: int):
+    """The tower's FLOPs over the dense bf16 tensor-core peak, against the
+    bytes of its observations, bf16 weights, float32 biases and float32
+    output."""
+    c, hw = cfg.channels, cfg.board_size ** 2
+    weights = 9 * (cfg.in_channels * c + 2 * cfg.n_res_blocks * c * c)
+    nbytes = (batch * hw * cfg.in_channels * 4 + weights * 2
+              + (1 + 2 * cfg.n_res_blocks) * c * 4 + batch * hw * c * 4)
+    return bound(nbytes, tower_flops(cfg, batch), BF16_FLOPS_PER_S)
 
 
 def backup_bound(layout, plen, expanding, depth):
@@ -214,12 +289,12 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = False
         log("tf32: matmul off, cudnn off")
 
-    with Phase("2 build"):
-        built = _build.build("tree_kernels")
-        how = "reused an earlier build" if built.reused else "built"
-        log(f"{how}: {built.path.name}, nvcc {built.seconds:.2f} s")
-        for line in built.ptxas:
-            log(f"  {line}")
+    with Phase("2 build (one nvcc per source, at once)"):
+        for built in _build.build_all(["tree_kernels", "fused_net"]).values():
+            how = "reused an earlier build" if built.reused else "built"
+            log(f"{how}: {built.path.name}, nvcc {built.seconds:.2f} s")
+            for line in built.ptxas:
+                log(f"  {line}")
 
     net = bundle_of(net_cfg, *init_params(net_cfg, args.seed), device=dev)
     eval_fn = make_eval_fn()
@@ -335,26 +410,28 @@ def main() -> int:
 
     with Phase(f"5b main path: play_games batch {BATCH}, 6x128, "
                f"{BOARD}x{BOARD}, PUCT@{SIMS}, {MOVES} moves"):
-        tk.reset_launch_counts()
+        reset_launch_counts()
         t0 = time.perf_counter()
         traj = play_games(env, sp_cfg, eval_fn, net, gen, dev)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = {"select_walk": tk.select_walk.launches,
-                    "backup_paths": tk.backup_paths.launches}
+        launches = launch_counts()
         moves_done = int(torch.clamp(traj.moves_played, max=MOVES).sum())
         log(f"main path: {moves_done} moves in {seconds:.3f} s = "
             f"{moves_done / seconds:.2f} moves/s (batch {BATCH}, 6x128, "
             f"PUCT@{SIMS}, {BOARD}x{BOARD}, fp32, TF32 off) on {smi}")
-        log(f"launches: {launches}")
+        expect_launches("PUCT main path", launches, {
+            "select_walk": MOVES * SIMS, "backup_paths": MOVES * SIMS,
+            "gumbel_select_walk": 0, "fused_tower": 0})
+        for name in ("select_walk", "backup_paths"):
+            rows[name]["launches"] = launches[name]
         for name, n in launches.items():
-            if n != MOVES * SIMS:
-                raise AssertionError(f"{name}: {n} launches, expected "
-                                     f"{MOVES} x {SIMS}")
-            rows[name]["launches"] = n
-        check_trajectories(env, traj)
+            rows[name]["launches_by_path"] = {"puct400": n}
+        check_trajectories(env, traj, MOVES)
         log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
             f" GiB")
+
+    gumbel_phases(args, env, net_cfg, net, gen, dev, rows, smi)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi())
@@ -364,20 +441,222 @@ def main() -> int:
     return 0
 
 
-def check_trajectories(env, traj):
-    """The main path's output, by the repo's own means: pi is a distribution
+def reset_launch_counts():
+    tk.reset_launch_counts()
+    fn.reset_launch_counts()
+
+
+def launch_counts():
+    return {"select_walk": tk.select_walk.launches,
+            "backup_paths": tk.backup_paths.launches,
+            "gumbel_select_walk": tk.gumbel_select_walk.launches,
+            "fused_tower": fn.fused_tower.launches}
+
+
+def expect_launches(path: str, got, want):
+    log(f"launches on the {path}: {got}")
+    for name, n in want.items():
+        if got[name] != n:
+            raise AssertionError(f"{path}: {name} launched {got[name]} "
+                                 f"times, expected {n}")
+
+
+def gumbel_phases(args, env, net_cfg, net, gen, dev, rows, smi):
+    """Phases 6-10: the Gumbel path's kernels, search and self-play."""
+    params, stats = init_params(net_cfg, args.seed)
+    folded = fn.fold_bn(net_cfg, params, stats, device=dev)
+    fused_eval = fn.make_fused_eval_fn(net_cfg)
+    _, phases = halving_schedule(GUMBEL_SIMS, GUMBEL_M)
+    rounds = sum(visits for _, visits in phases)
+
+    layout = tk.packed_layout(env.num_actions, GUMBEL_MCTS.node_capacity)
+    depth = GUMBEL_MCTS.depth_limit
+    cv, cs = GUMBEL_MCTS.gumbel_c_visit, GUMBEL_MCTS.gumbel_c_scale
+    with Phase(f"6 gumbel_select_walk against its plain version (batch "
+               f"{BATCH}, fan 1 and {FAN}, {layout.n_nodes} nodes, depth cap "
+               f"{depth})"):
+        states = random_states(env, BATCH, 4, gen, dev)
+        *_, tree = run_gumbel_packed_with_tree(env, GUMBEL_MCTS, fused_eval,
+                                               folded, states, gen)
+        log(f"grew the tree: Gumbel@{GUMBEL_SIMS} m={GUMBEL_M}, packed "
+            f"{tuple(tree.shape)}")
+        legal = tree[:, tk.SL_P, :layout.num_actions] >= 0
+        u = torch.rand(legal.shape, generator=gen, device=dev)
+        order = torch.argsort(torch.where(legal, u, -1.0), dim=1,
+                              descending=True)
+        for fan in (1, FAN):
+            # distinct legal root actions per tree, as one halving round has
+            root = order[:, :fan].reshape(-1).int().contiguous()
+            walk = tk.gumbel_select_walk(tree, root, layout, depth, cv, cs,
+                                         fan)
+            plain = tk.gumbel_select_walk_plain(tree, root, layout, depth, cv,
+                                                cs, fan)
+            for name, k, p in zip(("leaf", "action", "path_nodes",
+                                   "path_actions", "path_len"), walk, plain):
+                if not torch.equal(k, p):
+                    raise AssertionError(f"gumbel_select_walk fan {fan} "
+                                         f"{name}: kernel != plain "
+                                         f"(tolerance 0)")
+            err = max_abs_err(walk, plain)
+            plen = walk[4]
+
+            def call(root=root, fan=fan):
+                return tk.gumbel_select_walk(tree, root, layout, depth, cv,
+                                             cs, fan)
+
+            ms = graph_ms(call, reps=50)
+            eager_ms = cuda_ms(call, reps=50)
+            plain_ms = cuda_ms(lambda root=root, fan=fan:
+                               tk.gumbel_select_walk_plain(
+                                   tree, root, layout, depth, cv, cs, fan),
+                               reps=5, warmup=1)
+            bound_ms, bound_by = gumbel_bound(layout, walk, depth)
+            log(f"gumbel_select_walk fan {fan} ({BATCH * fan} lanes): kernel "
+                f"== plain on every output, tolerance 0 (max abs err {err}); "
+                f"path_len mean {plen.float().mean():.2f} max "
+                f"{int(plen.max())}; kernel {ms:.4f} ms (CUDA graph replay; "
+                f"eager wrapper call {eager_ms:.4f} ms), plain "
+                f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+            if fan == 1:
+                rows["gumbel_select_walk"].update(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+            else:
+                rows["gumbel_select_walk"].update(
+                    fan16_ms=ms, fan16_plain_ms=plain_ms,
+                    fan16_bound_ms=bound_ms)
+        log("no single PyTorch call computes the walk, so library_ms is null")
+        del tree
+
+    with Phase(f"7 fused_tower against its plain version (batch {BATCH}, "
+               f"6x128, {BOARD}x{BOARD}, bf16 inputs, fp32 sums)"):
+        obs = env.encode(random_states(env, BATCH, 30, gen, dev))
+        tower = fn.fused_tower(folded, obs)
+        tower_plain = fn.fused_tower_plain(folded, obs)
+        logits, value = fn.fused_predict(net_cfg, folded, obs)
+        plain_logits, plain_value = fn.folded_apply_plain(net_cfg, folded,
+                                                          obs)
+        errs = {"tower": float((tower - tower_plain).abs().max()),
+                "logits": float((logits - plain_logits).abs().max()),
+                "value": float((value - plain_value).abs().max())}
+        log(f"fused_tower: max abs err against plain {errs} (tower values up "
+            f"to {float(tower_plain.abs().max()):.3f}); tolerance {FUSED_TOL}")
+        for name, tol in FUSED_TOL.items():
+            if not errs[name] <= tol:
+                raise AssertionError(f"fused_tower {name}: max abs err "
+                                     f"{errs[name]} > {tol}")
+        if not torch.equal(fn.fused_tower(folded, obs), tower):
+            raise AssertionError("fused_tower is not deterministic")
+        with torch.no_grad():
+            ref_logits, ref_value = net(obs)
+        p_err = float((torch.softmax(logits, -1)
+                       - torch.softmax(ref_logits, -1)).abs().max())
+        v_err = float((value - ref_value).abs().max())
+        log(f"fused net against the float32 ResNet: probabilities max abs "
+            f"err {p_err}, value {v_err} (tolerance {BF16_VS_F32_TOL})")
+        if not (p_err <= BF16_VS_F32_TOL and v_err <= BF16_VS_F32_TOL):
+            raise AssertionError("fused net too far from the float32 ResNet")
+
+        ms = cuda_ms(lambda: fn.fused_tower(folded, obs), reps=20)
+        plain_ms = cuda_ms(lambda: fn.fused_tower_plain(folded, obs),
+                           reps=5, warmup=1)
+        xla = fn.fold_bn_xla(net_cfg, params, stats, device=dev)
+        with torch.no_grad():
+            library_ms = cuda_ms(lambda: fn.folded_xla_tower(xla, obs),
+                                 reps=20)
+        bound_ms, bound_by = tower_bound(net_cfg, BATCH)
+        tflops = tower_flops(net_cfg, BATCH) / ms / 1e9
+        rows["fused_tower"].update(max_abs_err=errs["logits"], ms=ms,
+                                   plain_ms=plain_ms, bound_ms=bound_ms,
+                                   bound_by=bound_by, library_ms=library_ms,
+                                   max_abs_err_value=errs["value"])
+        log(f"fused_tower: kernel {ms:.4f} ms ({tflops:.1f} TFLOP/s), plain "
+            f"{plain_ms:.4f} ms, library (folded_xla_tower, cuDNN bf16) "
+            f"{library_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+
+    with Phase(f"8 Gumbel search, kernels against plain (batch {PI_BATCH}, "
+               f"Gumbel@{GUMBEL_SIMS} m={GUMBEL_M}, fused eval)"):
+        states = random_states(env, PI_BATCH, 6, gen, dev)
+        out = {}
+        for label, ops in (("kernels", tk.KERNELS), ("plain", tk.PLAIN)):
+            g = torch.Generator(device=dev).manual_seed(args.seed + 2)
+            out[label] = run_gumbel_mcts(env, GUMBEL_MCTS, fused_eval, folded,
+                                         states, g, ops=ops)
+        for name, k, p in zip(("pi_target", "root_q", "action"),
+                              out["kernels"], out["plain"]):
+            if not torch.equal(k, p):
+                raise AssertionError(f"Gumbel search {name}: kernels != "
+                                     f"plain")
+        log(f"Gumbel search: actions, pi_target and root_q equal exactly "
+            f"over {PI_BATCH} lanes")
+
+    sp_cfg = SelfPlayConfig(batch_games=BATCH, mcts=GUMBEL_MCTS,
+                            max_moves=MOVES)
+    with Phase(f"9a Gumbel main path warm-up (batch {BATCH}, 1 move)"):
+        play_games(env, dataclasses.replace(sp_cfg, max_moves=1), fused_eval,
+                   folded, gen, dev)
+
+    with Phase(f"9b Gumbel main path: play_games batch {BATCH}, 6x128 fused "
+               f"bf16, {BOARD}x{BOARD}, Gumbel@{GUMBEL_SIMS} m={GUMBEL_M}, "
+               f"{MOVES} moves"):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        traj = play_games(env, sp_cfg, fused_eval, folded, gen, dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()
+        moves_done = int(torch.clamp(traj.moves_played, max=MOVES).sum())
+        log(f"Gumbel main path: {moves_done} moves in {seconds:.3f} s = "
+            f"{moves_done / seconds:.2f} moves/s (batch {BATCH}, 6x128 fused "
+            f"bf16, Gumbel@{GUMBEL_SIMS}, {BOARD}x{BOARD}) on {smi}")
+        expect_launches("Gumbel main path", launches, {
+            "gumbel_select_walk": MOVES * GUMBEL_SIMS,
+            "backup_paths": MOVES * GUMBEL_SIMS,
+            "fused_tower": MOVES * (1 + GUMBEL_SIMS), "select_walk": 0})
+        for name in ("gumbel_select_walk", "fused_tower"):
+            rows[name]["launches"] = launches[name]
+        for name, n in launches.items():
+            rows[name]["launches_by_path"]["gumbel64"] = n
+        check_trajectories(env, traj, MOVES)
+
+    par = dataclasses.replace(
+        sp_cfg, max_moves=PARALLEL_MOVES,
+        mcts=dataclasses.replace(GUMBEL_MCTS, gumbel_round_parallel=True))
+    with Phase(f"10 round-parallel Gumbel: play_games batch {BATCH}, "
+               f"{PARALLEL_MOVES} moves, {rounds} rounds a move"):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        traj = play_games(env, par, fused_eval, folded, gen, dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        moves_done = int(torch.clamp(traj.moves_played,
+                                     max=PARALLEL_MOVES).sum())
+        log(f"round-parallel Gumbel: {moves_done} moves in {seconds:.3f} s = "
+            f"{moves_done / seconds:.2f} moves/s (first move's compile "
+            f"and cuDNN set-up at the larger batches included)")
+        expect_launches("round-parallel Gumbel path", launch_counts(), {
+            "gumbel_select_walk": PARALLEL_MOVES * rounds,
+            "backup_paths": PARALLEL_MOVES * GUMBEL_SIMS,
+            "fused_tower": PARALLEL_MOVES * (1 + rounds), "select_walk": 0})
+        check_trajectories(env, traj, PARALLEL_MOVES)
+        log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+            f" GiB")
+
+
+def check_trajectories(env, traj, moves: int):
+    """A main path's output, by the repo's own means: pi is a distribution
     over legal moves, boards gain one stone a ply, values are finite."""
-    pis = traj.pis[:MOVES]
-    if pis.shape != (MOVES, BATCH, env.num_actions):
+    pis = traj.pis[:moves]
+    if pis.shape != (moves, BATCH, env.num_actions):
         raise AssertionError(f"pis shape {tuple(pis.shape)}")
     if not (torch.isfinite(pis).all() and torch.isfinite(traj.root_qs).all()):
         raise AssertionError("non-finite pi or root_q")
-    if not traj.active[:MOVES].all():
-        raise AssertionError("a game ended within 8 moves")
+    if not traj.active[:moves].all():
+        raise AssertionError(f"a game ended within {moves} moves")
     sums = pis.sum(dim=-1)
     if not torch.allclose(sums, torch.ones_like(sums), atol=1e-5):
         raise AssertionError("pi rows do not sum to 1")
-    for t in range(MOVES):
+    for t in range(moves):
         board = traj.boards[t].reshape(BATCH, -1)
         if not torch.equal((board != 0).sum(dim=1),
                            torch.full((BATCH,), t, device=board.device)):
@@ -387,10 +666,10 @@ def check_trajectories(env, traj):
         acts = traj.actions[t].long()
         if (board.gather(1, acts[:, None]) != 0).any():
             raise AssertionError(f"ply {t}: a move on an occupied point")
-    if traj.root_qs[:MOVES].abs().max() > 1.0 + 1e-6:
+    if traj.root_qs[:moves].abs().max() > 1.0 + 1e-6:
         raise AssertionError("root_q outside [-1, 1]")
-    log(f"trajectories: {MOVES} plies x {BATCH} games checked; "
-        f"root_q mean {float(traj.root_qs[:MOVES].mean()):.4f}, pi max mean "
+    log(f"trajectories: {moves} plies x {BATCH} games checked; "
+        f"root_q mean {float(traj.root_qs[:moves].mean()):.4f}, pi max mean "
         f"{float(pis.max(dim=-1).values.mean()):.4f}")
 
 

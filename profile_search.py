@@ -1,23 +1,26 @@
 #!/usr/bin/env python3
-"""Where a self-play move's time goes on the card: one search, profiled.
+"""Where a self-play move's time goes on the card: each search, profiled.
 
     python3 profile_search.py
 
-Runs the search of ``chip_smoke.py``'s main path (bench config #3:
-``chip_smoke.MAIN_MCTS``, the 6x128 net, 15x15, batch 256, fp32 with TF32
-off) for ``SIMS`` simulations in a tree sized for 400, from positions 4
-random plies in, once to warm up, once untraced and once under
-``torch.profiler``, and prints:
+Runs the searches of ``chip_smoke.py``'s two main paths from positions 4
+random plies in, at batch 256, 15x15, with the 6x128 net from seed 0: PUCT
+(``chip_smoke.MAIN_MCTS``, the float32 ``ResNet`` with TF32 off) for
+``SIMS`` simulations in a tree sized for 400, and one whole Gumbel@64 search
+(``chip_smoke.GUMBEL_MCTS``, the fused bf16 tower).  Each runs once to warm
+up, once untraced and once under ``torch.profiler``, and prints:
 
   - host wall time per simulation (``time.perf_counter`` around work that
     ends in ``torch.cuda.synchronize()``);
   - the card's busy share: the union of the device's kernel, copy and set
     intervals in the trace over the traced wall time;
-  - device time per simulation in the network (root and leaf evals), in each
-    tree kernel, and in everything else (the game step, state gather and
-    write, encoding, priors);
-  - the network forward alone at this batch, by CUDA events;
-  - the kernels that take the most device time.
+  - device time per simulation in the network's torch ops (root and leaf
+    evals), in the tree kernels and the fused tower's kernels (by kernel
+    name), and in everything else (the game step, state gather and write,
+    encoding, priors);
+  - the kernels that take the most device time;
+
+and then each network's forward alone at batch 256, by CUDA events.
 
 It needs the card, and exits 1 without one; it prints "not measured" where
 the trace has no device time.
@@ -26,6 +29,7 @@ the trace has no device time.
 from __future__ import annotations
 
 import dataclasses
+import re
 import sys
 import time
 
@@ -39,16 +43,27 @@ from alphazero_gomoku_tpu_torch.models import (
     init_params,
     make_eval_fn,
 )
+from alphazero_gomoku_tpu_torch.ops import fused_net as fn
+from alphazero_gomoku_tpu_torch.search.gumbel import run_gumbel_mcts
 from alphazero_gomoku_tpu_torch.search.tree_packed import run_mcts_packed
-from chip_smoke import BATCH, BOARD, MAIN_MCTS, nvidia_smi, random_states
+from chip_smoke import (
+    BATCH,
+    BOARD,
+    GUMBEL_MCTS,
+    MAIN_MCTS,
+    nvidia_smi,
+    random_states,
+    tower_flops,
+)
 
 SIMS = 100   # simulations traced: a quarter of a move, in a 400-sim tree
 SEED = 0
 
-# the network runs inside this record_function range; the tree kernels are
-# found by kernel name (see _range_device_us)
+# the network runs inside this record_function range; the tree kernels and
+# the fused tower's kernels are found by kernel name (see _range_device_us)
 NETWORK = "network"
-TREE_KERNELS = ("select_walk", "backup_paths")
+TREE_KERNELS = ("select_walk", "gumbel_select_walk", "backup_paths")
+TOWER_KERNELS = ("conv3x3", "stem")
 
 
 def _ranged(name, fn):
@@ -95,7 +110,73 @@ def _range_device_us(prof, name) -> float:
 
 
 def _kernel_device_us(spans, name) -> float:
-    return float(sum(e - s for n, s, e in spans if f"{name}_kernel" in n))
+    """Device time of the kernels named ``<name>_kernel`` (mangled or not);
+    ``select_walk`` does not match ``gumbel_select_walk_kernel``."""
+    pattern = re.compile(rf"(?<![A-Za-z_]){name}_kernel")
+    return float(sum(e - s for n, s, e in spans if pattern.search(n)))
+
+
+def profile_search(label, search, sims, kernel_groups):
+    """Time ``search()`` (``sims`` simulations) untraced and traced, and print
+    where the device time goes: the ``NETWORK`` range's device time, the
+    device time of each group of kernels found by name, and the rest."""
+    search()                                  # warm-up: build, cuDNN setup
+    t0 = time.perf_counter()
+    search()
+    plain_s = time.perf_counter() - t0
+    print(f"[{label}] search without profiler: {plain_s / sims * 1e3:.3f} ms "
+          f"per simulation (batch {BATCH}, {sims} sims)", flush=True)
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        search()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = _device_spans(prof)
+    busy = _busy_us(spans)
+    print(f"[{label}] traced: wall {wall_us / sims / 1e3:.3f} ms per "
+          f"simulation", flush=True)
+    if busy == 0.0:
+        print(f"[{label}] device busy share: not measured (no device time in "
+              f"the trace)")
+    else:
+        print(f"[{label}] device busy share: {busy / wall_us:.4f} "
+              f"(idle {1 - busy / wall_us:.4f})")
+    print(f"[{label}] device busy time per simulation: "
+          f"{busy / sims / 1e3:.4f} ms")
+    print(f"[{label}] device time per simulation, {NETWORK} range (torch ops "
+          f"of the eval): {_range_device_us(prof, NETWORK) / sims / 1e3:.4f} "
+          f"ms")
+    named = 0.0
+    for group, names in kernel_groups.items():
+        us = sum(_kernel_device_us(spans, name) for name in names)
+        named += us
+        print(f"[{label}] device time per simulation, {group} kernels: "
+              f"{us / sims / 1e3:.4f} ms")
+    total = sum(e - s for _, s, e in spans)
+    print(f"[{label}] device time per simulation, all other kernels: "
+          f"{(total - named) / sims / 1e3:.4f} ms")
+
+    by_name = {}
+    for name, s, e in spans:
+        us, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (us + e - s, n + 1)
+    print(f"[{label}] top device kernels (ms per simulation, calls):")
+    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
+        print(f"  {us / sims / 1e3:9.4f}  {n:6d}  {name[:90]}")
+
+
+def forward_ms(eval_fn, bundle, obs) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(3):
+        eval_fn(bundle, obs)
+    start.record()
+    for _ in range(20):
+        eval_fn(bundle, obs)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / 20
 
 
 def main() -> int:
@@ -109,76 +190,40 @@ def main() -> int:
 
     env = make_env("gomoku", BOARD)
     cfg = NetConfig.full(BOARD)
-    net = bundle_of(cfg, *init_params(cfg, SEED), device=dev)
+    params, stats = init_params(cfg, SEED)
+    net = bundle_of(cfg, params, stats, device=dev)
+    folded = fn.fold_bn(cfg, params, stats, device=dev)
     eval_fn = make_eval_fn()
+    fused_eval = fn.make_fused_eval_fn(cfg)
     mcts = dataclasses.replace(MAIN_MCTS, n_simulations=SIMS,
                                max_nodes=MAIN_MCTS.node_capacity)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     states = random_states(env, BATCH, 4, gen, dev)
     moves = torch.full((BATCH,), 4, dtype=torch.int32, device=dev)
-    ev = _ranged(NETWORK, eval_fn)
 
-    def search():
-        run_mcts_packed(env, mcts, ev, net, states, moves, gen)
+    def puct():
+        run_mcts_packed(env, mcts, _ranged(NETWORK, eval_fn), net, states,
+                        moves, gen)
         torch.cuda.synchronize()
 
-    search()                                  # warm-up: build, cuDNN setup
-    t0 = time.perf_counter()
-    search()
-    plain_s = time.perf_counter() - t0
-    print(f"search without profiler: {plain_s / SIMS * 1e3:.3f} ms per "
-          f"simulation (batch {BATCH}, {SIMS} sims)", flush=True)
+    def gumbel():
+        run_gumbel_mcts(env, GUMBEL_MCTS, _ranged(NETWORK, fused_eval),
+                        folded, states, gen)
+        torch.cuda.synchronize()
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        search()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    spans = _device_spans(prof)
-    busy = _busy_us(spans)
-    print(f"traced: wall {wall_us / SIMS / 1e3:.3f} ms per simulation",
-          flush=True)
-    if busy == 0.0:
-        print("device busy share: not measured (no device time in the trace)")
-    else:
-        print(f"device busy share: {busy / wall_us:.4f} "
-              f"(idle {1 - busy / wall_us:.4f})")
-    print(f"device busy time per simulation: {busy / SIMS / 1e3:.4f} ms")
-    named = 0.0
-    for name in (NETWORK,) + TREE_KERNELS:
-        us = (_range_device_us(prof, name) if name == NETWORK
-              else _kernel_device_us(spans, name))
-        named += us
-        print(f"device time per simulation, {name}: {us / SIMS / 1e3:.4f} ms")
-    total = sum(e - s for _, s, e in spans)
-    print(f"device time per simulation, other: "
-          f"{(total - named) / SIMS / 1e3:.4f} ms")
-
-    by_name = {}
-    for name, s, e in spans:
-        us, n = by_name.get(name, (0.0, 0))
-        by_name[name] = (us + e - s, n + 1)
-    print("top device kernels (ms per simulation, calls):")
-    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
-        print(f"  {us / SIMS / 1e3:9.4f}  {n:6d}  {name[:90]}")
+    profile_search(f"PUCT@{MAIN_MCTS.n_simulations}", puct, SIMS,
+                   {"tree": TREE_KERNELS})
+    profile_search(f"Gumbel@{GUMBEL_MCTS.n_simulations}", gumbel,
+                   GUMBEL_MCTS.n_simulations,
+                   {"tree": TREE_KERNELS, "fused tower": TOWER_KERNELS})
 
     obs = env.encode(states)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    for _ in range(3):
-        eval_fn(net, obs)
-    start.record()
-    for _ in range(20):
-        eval_fn(net, obs)
-    end.record()
-    torch.cuda.synchronize()
-    net_ms = start.elapsed_time(end) / 20
-    c = cfg.channels
-    flops = 2 * BOARD * BOARD * (cfg.in_channels * c * 9
-                                 + 2 * cfg.n_res_blocks * c * c * 9)
-    print(f"network forward alone: {net_ms:.4f} ms at batch {BATCH} "
-          f"({flops * BATCH / net_ms / 1e9:.2f} TFLOP/s in the "
-          f"convolutions)")
+    flops = tower_flops(cfg, BATCH)
+    for label, ms in (("float32 ResNet (cuDNN)", forward_ms(eval_fn, net, obs)),
+                      ("fused bf16 tower + heads",
+                       forward_ms(fused_eval, folded, obs))):
+        print(f"network forward alone, {label}: {ms:.4f} ms at batch {BATCH} "
+              f"({flops / ms / 1e9:.2f} TFLOP/s in the convolutions)")
     return 0
 
 

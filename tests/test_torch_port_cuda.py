@@ -18,9 +18,15 @@ from alphazero_gomoku_tpu_torch.models import (
     init_params,
     make_eval_fn,
 )
+from alphazero_gomoku_tpu_torch.ops import fused_net as fn
 from alphazero_gomoku_tpu_torch.ops import tree_kernels as tk
 from alphazero_gomoku_tpu_torch.search import MCTSConfig
+from alphazero_gomoku_tpu_torch.search.gumbel import (
+    halving_schedule,
+    run_gumbel_mcts,
+)
 from alphazero_gomoku_tpu_torch.search.tree_packed import (
+    run_gumbel_packed_with_tree,
     run_mcts_packed,
     run_mcts_packed_with_tree,
 )
@@ -130,3 +136,109 @@ def test_kernel_wrappers_raise_on_bad_cuda_inputs():
         tk.select_walk(packed[:, :8], layout, 1.0, 4)
     with pytest.raises(TypeError):
         tk.select_walk(packed.double(), layout, 1.0, 4)
+
+
+def _gumbel_tree(dev, size=15, batch=64, sims=48, m=16):
+    env = make_env("gomoku", size)
+    cfg = NetConfig(board_size=size, action_size=size * size,
+                    n_res_blocks=2, channels=64)
+    params, stats = init_params(cfg, 0)
+    folded = fn.fold_bn(cfg, params, stats, device=dev)
+    mcfg = MCTSConfig(n_simulations=sims, search="gumbel",
+                      gumbel_max_considered=m, add_noise=False, max_depth=56)
+    states = _random_states(env, batch, 6, 1, dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    *_, packed = run_gumbel_packed_with_tree(
+        env, mcfg, fn.make_fused_eval_fn(cfg), folded, states, g)
+    return env, mcfg, tk.packed_layout(size * size, mcfg.node_capacity), packed
+
+
+@pytest.mark.parametrize("fan", [1, 16])
+def test_gumbel_select_walk_kernel_equals_plain(fan):
+    dev = _card()
+    env, mcfg, layout, packed = _gumbel_tree(dev)
+    b = packed.shape[0]
+    g = torch.Generator(device=dev).manual_seed(fan)
+    # distinct legal root actions per tree: the root prior row's legal ones,
+    # in a random order
+    legal = packed[:, tk.SL_P, :layout.num_actions] >= 0
+    u = torch.rand(legal.shape, generator=g, device=dev)
+    root = torch.argsort(torch.where(legal, u, -1.0), dim=1,
+                         descending=True)[:, :fan].reshape(-1).int()
+    for depth in (mcfg.depth_limit, 2):
+        got = tk.gumbel_select_walk(packed, root, layout, depth,
+                                    mcfg.gumbel_c_visit, mcfg.gumbel_c_scale,
+                                    fan)
+        want = tk.gumbel_select_walk_plain(packed, root, layout, depth,
+                                           mcfg.gumbel_c_visit,
+                                           mcfg.gumbel_c_scale, fan)
+        torch.cuda.synchronize()
+        assert got[0].shape == (b * fan,)
+        for name, x, y in zip(("leaf", "action", "path_nodes",
+                               "path_actions", "path_len"), got, want):
+            assert torch.equal(x, y), name
+
+
+def test_exp_log_f32_on_the_card_equal_the_cpu():
+    dev = _card()
+    g = torch.Generator().manual_seed(0)
+    x = -torch.rand(100000, generator=g) * 110
+    y = torch.rand(100000, generator=g) + 1e-30
+    assert torch.equal(tk.exp_f32(x.to(dev)).cpu(), tk.exp_f32(x))
+    assert torch.equal(tk.log_f32(y.to(dev)).cpu(), tk.log_f32(y))
+
+
+@pytest.mark.parametrize("channels", [64, 128])
+def test_fused_tower_kernel_close_to_plain(channels):
+    """The kernel sums in another order than the plain version; a sum on the
+    other side of a bf16 rounding boundary moves the next conv's input by a
+    bf16 step (see ``chip_smoke.FUSED_TOL``)."""
+    dev = _card()
+    size, batch = 15, 40          # batch*225 is not a multiple of 64 pixels
+    cfg = NetConfig(board_size=size, action_size=size * size,
+                    n_res_blocks=2, channels=channels)
+    folded = fn.fold_bn(cfg, *init_params(cfg, 1), device=dev)
+    obs = make_env("gomoku", size).encode(_random_states(
+        make_env("gomoku", size), batch, 30, 3, dev))
+    fn.reset_launch_counts()
+    got = fn.fused_tower(folded, obs)
+    assert fn.fused_tower.launches == 1
+    want = fn.fused_tower_plain(folded, obs)
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 2e-3 * max(scale, 1.0)
+    logits, value = fn.fused_predict(cfg, folded, obs)
+    plain_logits, plain_value = fn.folded_apply_plain(cfg, folded, obs)
+    assert float((logits - plain_logits).abs().max()) <= 1e-2
+    assert float((value - plain_value).abs().max()) <= 1e-3
+    assert torch.equal(fn.fused_tower(folded, obs), got)    # deterministic
+
+
+def test_gumbel_search_kernels_equal_plain_and_count_launches():
+    dev = _card()
+    size, batch = 15, 16
+    env = make_env("gomoku", size)
+    cfg = NetConfig(board_size=size, action_size=size * size,
+                    n_res_blocks=2, channels=128)
+    folded = fn.fold_bn(cfg, *init_params(cfg, 0), device=dev)
+    eval_fn = fn.make_fused_eval_fn(cfg)
+    states = _random_states(env, batch, 4, 5, dev)
+    _, phases = halving_schedule(24, 8)
+    rounds = sum(visits for _, visits in phases)
+    for parallel, walks in ((False, 24), (True, rounds)):
+        mcfg = MCTSConfig(n_simulations=24, search="gumbel",
+                          gumbel_max_considered=8, add_noise=False,
+                          max_depth=56, gumbel_round_parallel=parallel)
+        outs = []
+        for ops in (tk.KERNELS, tk.PLAIN):
+            tk.reset_launch_counts()
+            fn.reset_launch_counts()
+            g = torch.Generator(device=dev).manual_seed(7)
+            outs.append(run_gumbel_mcts(env, mcfg, eval_fn, folded, states,
+                                        g, ops=ops))
+            if ops is tk.KERNELS:
+                assert tk.gumbel_select_walk.launches == walks
+                assert tk.backup_paths.launches == 24
+                assert fn.fused_tower.launches == 1 + walks
+        for x, y in zip(*outs):
+            assert torch.equal(x, y)

@@ -50,6 +50,7 @@ def test_every_port_module_imports():
     names = [m.name for m in pkgutil.walk_packages(
         alphazero_gomoku_tpu_torch.__path__, "alphazero_gomoku_tpu_torch.")]
     assert "alphazero_gomoku_tpu_torch.ops.tree_kernels" in names
+    assert "alphazero_gomoku_tpu_torch.ops.fused_net" in names
     for name in names:
         importlib.import_module(name)
     from alphazero_gomoku_tpu_torch.ops import _build
@@ -57,6 +58,6 @@ def test_every_port_module_imports():
 
 
 def test_kernel_wrappers_have_no_fallback():
-    src = (PORT / "ops" / "tree_kernels.py").read_text()
-    tree = ast.parse(src)
-    assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
+    for name in ("tree_kernels.py", "fused_net.py"):
+        tree = ast.parse((PORT / "ops" / name).read_text())
+        assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), name

@@ -10,8 +10,9 @@ the JAX kernel walks its lanes in lockstep over a tile of up to 128 lanes,
 writes -1 for lanes that have stopped while others walk on, and leaves the
 rows after the tile's last hop at their initial 0.  The port's walk is per
 lane and writes -1 in every row at or beyond ``path_len``.  The backup reads
-no row at or beyond ``path_len`` in either package.  ``_jax_row_fill`` turns
-the port's rows into the JAX fill, so the comparison stays exact.
+no row at or beyond ``path_len`` in either package.
+``torch_port_util.assert_walk_equal`` turns the port's rows into the JAX
+fill, so the comparison stays exact.
 """
 
 import numpy as np
@@ -35,6 +36,7 @@ from alphazero_gomoku_tpu_torch.search.tree_packed import (
 
 from torch_port_util import (  # noqa: F401  (one_torch_thread: autouse)
     TableEval,
+    assert_walk_equal,
     one_torch_thread,
     random_jax_states,
     to_torch_state,
@@ -44,30 +46,6 @@ SIZE = 9
 A = SIZE * SIZE
 BATCH = 12
 SIMS = 20
-
-
-def _jax_row_fill(action, plen, rows, depth):
-    """The port's path rows ([depth, B]) as the JAX lockstep walk leaves them."""
-    # hops each lane walked: an expanding lane records its last hop, a lane
-    # that met a terminal node read it without recording it
-    hops = np.where(action >= 0, plen, np.minimum(plen + 1, depth))
-    out = rows.copy()
-    out[int(hops.max()):] = 0   # one lane tile: batch <= jtk.LANE_TILE
-    return out
-
-
-def _assert_select_equal(jout, tout, depth):
-    leaf, action, pnodes, pacts, plen = (x.numpy() for x in tout)
-    jl, ja, jpn, jpa, jpl = (np.asarray(x) for x in jout)
-    np.testing.assert_array_equal(jl, leaf)
-    np.testing.assert_array_equal(ja, action)
-    np.testing.assert_array_equal(jpl, plen)
-    np.testing.assert_array_equal(jpn, _jax_row_fill(action, plen, pnodes,
-                                                     depth))
-    np.testing.assert_array_equal(jpa, _jax_row_fill(action, plen, pacts,
-                                                     depth))
-    rows = np.arange(depth)[:, None]
-    assert (pnodes[rows >= plen[None]] == -1).all()
 
 
 # (plies played before the search, depth cap, fpu mode): fresh and mid-game
@@ -108,7 +86,7 @@ def test_select_walk_matches_jax(trees):
     jout = jtk.select_walk(jnp.asarray(jpacked), jtk.packed_layout(
         A, cfg.node_capacity), 1.25, depth, interpret=True, fpu_parent=fpu)
     tout = tk.select_walk(packed, layout, 1.25, depth, fpu_parent=fpu)
-    _assert_select_equal(jout, tout, depth)
+    assert_walk_equal(jout, tout, depth)
     # the wrapper took the plain version: the tensor is on the CPU
     plain = tk.select_walk_plain(packed, layout, 1.25, depth, fpu)
     for x, y in zip(tout, plain):

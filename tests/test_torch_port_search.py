@@ -100,7 +100,7 @@ def test_search_without_noise_tensor_draws_from_the_generator():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(search="gumbel"), "item 7"),
+    (dict(search="gumbel", reuse_budget=8), "item 11"),
     (dict(leaves_per_sim=2), "item 11"),
     (dict(reuse_budget=8), "item 11"),
 ])

@@ -27,6 +27,38 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
+def _jax_row_fill(action, plen, rows, depth):
+    """The port's path rows ([depth, L]) as the JAX lockstep walk leaves them.
+
+    The JAX walk kernels walk their lanes in lockstep over a tile of up to
+    128 lanes, write -1 for lanes that have stopped while others walk on, and
+    leave the rows after the tile's last hop at their initial 0; the port's
+    walks write -1 in every row at or beyond ``path_len``.
+    """
+    # hops each lane walked: an expanding lane records its last hop, a lane
+    # that met a terminal node read it without recording it
+    hops = np.where(action >= 0, plen, np.minimum(plen + 1, depth))
+    out = rows.copy()
+    assert rows.shape[1] <= 128   # one lane tile of the JAX kernel
+    out[int(hops.max()):] = 0
+    return out
+
+
+def assert_walk_equal(jout, tout, depth):
+    """A JAX walk kernel's five outputs equal the port's, path rows mapped."""
+    leaf, action, pnodes, pacts, plen = (x.numpy() for x in tout)
+    jl, ja, jpn, jpa, jpl = (np.asarray(x) for x in jout)
+    np.testing.assert_array_equal(jl, leaf)
+    np.testing.assert_array_equal(ja, action)
+    np.testing.assert_array_equal(jpl, plen)
+    np.testing.assert_array_equal(jpn, _jax_row_fill(action, plen, pnodes,
+                                                     depth))
+    np.testing.assert_array_equal(jpa, _jax_row_fill(action, plen, pacts,
+                                                     depth))
+    rows = np.arange(depth)[:, None]
+    assert (pnodes[rows >= plen[None]] == -1).all()
+
+
 def to_torch_state(st) -> TorchState:
     return TorchState(*(torch.from_numpy(np.array(x)) for x in st))
 
