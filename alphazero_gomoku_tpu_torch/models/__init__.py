@@ -1,13 +1,17 @@
 """The residual policy/value network (eval mode) and its eval function.
 
-``make_eval_fn`` runs the float32 ``ResNet``.  The fused bf16 tower's eval
-function and the BN folding it takes are in ``ops/fused_net.py``
-(``make_fused_eval_fn``, ``fold_bn``), beside their CUDA kernel.
+``make_eval_fn`` runs the float32 ``ResNet``; ``make_inference`` picks an
+inference mode (float32, bf16, the fused bf16 tower, int8, the int8 tower)
+and builds its bundle.  The folded and quantized forwards are in ``ops/``
+(``fused_net.py``, ``int8_net.py``, ``int8_tower.py``), beside their CUDA
+kernels.
 """
 
 from alphazero_gomoku_tpu_torch.models.model import (  # noqa: F401
+    INFERENCE_MODES,
     bundle_of,
     make_eval_fn,
+    make_inference,
 )
 from alphazero_gomoku_tpu_torch.models.resnet import (  # noqa: F401
     NetConfig,

@@ -4,6 +4,10 @@ Counterpart of ``alphazero_gomoku_tpu/selfplay/loop.py:60-73``
 (``make_eval_fn`` / ``bundle_of``), with only what the eval path needs.  In
 the JAX package the bundle is the ``{'params', 'batch_stats'}`` pytree; here
 it is the eval-mode :class:`ResNet` that holds them.
+
+:func:`make_inference` is the counterpart of the inference switch of
+``selfplay/loop.py:440-516`` and ``bench.py:112-160``: one name picks the
+forward and builds the bundle it takes.
 """
 
 from __future__ import annotations
@@ -41,3 +45,48 @@ def bundle_of(cfg: NetConfig, params: Params, batch_stats: Params,
     net = ResNet(cfg)
     net.load_state_dict(params_from_jax(params, batch_stats))
     return net.to(dev).eval()
+
+
+INFERENCE_MODES = ("f32", "bf16", "fused", "int8", "int8t")
+
+
+def make_inference(inference: str, cfg: NetConfig, params: Params,
+                   batch_stats: Params, device=None, int8_skip: str = "f32"):
+    """``(eval_fn, bundle)`` for an inference mode, the weights given in the
+    JAX pytree layout, the bundle on ``device`` (None: the card).
+
+      - ``"f32"``: the float32 :class:`ResNet`;
+      - ``"bf16"``: the folded forward with bf16 activations
+        (``ops/fused_net.folded_xla_apply``);
+      - ``"fused"``: the fused bf16 tower kernel (``fused_net.fused_predict``);
+      - ``"int8"``: the int8 forward on ``torch._int_mm``
+        (``ops/int8_net.int8_apply``), skip track ``int8_skip``;
+      - ``"int8t"``: the same quantized bundle through the int8 tower kernel
+        (``ops/int8_tower.int8_tower_apply``; float32 skip track only).
+
+    int8 bundles are calibrated on ``random_calib_obs`` boards, as
+    ``bench.py`` calibrates them.  ``play_games`` and ``run_mcts_packed``
+    take the pair as it is.
+    """
+    # imported here: the ops modules import models.resnet
+    from alphazero_gomoku_tpu_torch.ops import fused_net, int8_net, int8_tower
+
+    if inference not in INFERENCE_MODES:
+        raise ValueError(f"unknown inference mode {inference!r}: expected one "
+                         f"of {INFERENCE_MODES}")
+    if inference == "f32":
+        return make_eval_fn(), bundle_of(cfg, params, batch_stats, device)
+    if inference == "bf16":
+        return (fused_net.make_bf16_eval_fn(cfg),
+                fused_net.fold_bn_xla(cfg, params, batch_stats, device=device))
+    if inference == "fused":
+        return (fused_net.make_fused_eval_fn(cfg),
+                fused_net.fold_bn(cfg, params, batch_stats, device=device))
+    q = int8_net.quantize_int8(
+        cfg, params, batch_stats,
+        int8_net.random_calib_obs(cfg, cin=cfg.in_channels),
+        residual=int8_skip, device=device)
+    if inference == "int8":
+        return int8_net.make_int8_eval_fn(cfg), q
+    return (int8_tower.make_int8_tower_eval_fn(cfg),
+            int8_tower.pack_tower_bundle(cfg, q))

@@ -1,2 +1,2 @@
-"""Line detection, the packed-tree kernels and the fused network tower (CUDA,
-with plain versions), and their build."""
+"""Line detection, the packed-tree kernels, the bf16 and int8 network towers
+(CUDA, with plain versions), int8 quantization, and their build."""

@@ -8,10 +8,10 @@ with a plain C interface:
          -shared -Xcompiler -fPIC -Xptxas -v <SOURCE_FLAGS[name]>
          -o build/<name>-<hash>.so <src>
 
-``SOURCE_FLAGS`` adds flags per source: the tree kernels build with
-``--fmad=false``, so that no multiply and add are contracted into an FMA and
-the walk rounds as its plain version does; the network kernels build
-without it.  No PyTorch headers are included, so a build takes seconds.
+``SOURCE_FLAGS`` adds flags per source: the tree kernels and the int8
+tower build with ``--fmad=false``, so that no multiply and add are
+contracted into an FMA and they round as their plain versions do; the bf16
+tower builds without it.  No PyTorch headers are included, so a build takes seconds.
 :func:`build_all` starts one ``nvcc`` per source at once.  The library name
 carries a hash of the source and the flags, so an edit rebuilds.  Paths are
 resolved from this file, not from the working directory.
@@ -41,6 +41,7 @@ NVCC_FLAGS = (
 SOURCE_FLAGS = {
     "tree_kernels": ("--fmad=false",),
     "fused_net": (),
+    "int8_tower": ("--fmad=false",),
 }
 
 

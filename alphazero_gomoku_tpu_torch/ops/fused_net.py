@@ -23,9 +23,10 @@ Counterpart of ``alphazero_gomoku_tpu/ops/fused_net.py``:
     :func:`folded_apply_plain` is the same with the plain tower.
   - :func:`fold_bn_xla`, :func:`folded_xla_apply` and
     :func:`make_bf16_eval_fn`: the folded forward with bf16 activations
-    between layers, as plain torch (cuDNN bf16 on the card).  No kernel of
-    the port: the JAX package runs it as XLA.  ``chip_smoke.py`` times its
-    tower as the library yardstick of :func:`fused_tower`.
+    between layers, as plain torch (im2col and a bf16 matmul with float32
+    output on the card).  No kernel of the port: the JAX package runs it as
+    XLA.  ``chip_smoke.py`` times its tower as the library yardstick of
+    :func:`fused_tower`.
 
 Layouts are the JAX package's: observations and the tower's activations
 NHWC ``[B, H, W, C]``; conv weights ``[9, Cin, Cout]`` (tap ``3*dy + dx``);
@@ -271,20 +272,56 @@ def make_fused_eval_fn(cfg: NetConfig):
 
 
 # ----------------------------------------------------------------------
-# folded bf16 forward in plain torch (cuDNN on the card)
+# folded bf16 forward in plain torch
 # ----------------------------------------------------------------------
-def _oihw(w: torch.Tensor) -> torch.Tensor:
-    """HWIO -> OIHW in channels-last memory, the layout cuDNN's NHWC
-    kernels take."""
-    return w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+def _im2col(x: torch.Tensor, k: int) -> torch.Tensor:
+    """NHWC ``x [B, H, W, C]`` -> ``[B*H*W, k]``: the nine 3x3 SAME taps in
+    order ``3*dy + dx``, each ``C`` wide, zero outside the board and in the
+    columns past ``9*C``."""
+    b, h, w, c = x.shape
+    pad = F.pad(x, (0, 0, 1, 1, 1, 1))
+    cols = [pad[:, dy:dy + h, dx:dx + w, :]
+            for dy in range(3) for dx in range(3)]
+    if k > 9 * c:
+        cols.append(x.new_zeros((b, h, w, k - 9 * c)))
+    return torch.cat(cols, dim=-1).reshape(b * h * w, k)
+
+
+def _conv_matrix(w: torch.Tensor, dtype) -> torch.Tensor:
+    """HWIO ``[3, 3, Cin, Cout]`` -> ``[K, Cout]`` in ``dtype`` (row
+    ``(3*dy + dx) * Cin + ci``), ``K = 9 * Cin`` padded with zero rows to a
+    multiple of 8."""
+    k = 9 * w.shape[2]
+    return F.pad(w.reshape(k, w.shape[3]), (0, 0, 0, -k % 8)).to(dtype)
+
+
+def _mm_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` with a float32 result and float32 sums, whatever the
+    storage dtype: on the card ``torch.mm(..., out_dtype=float32)`` (bf16
+    tensor cores, float32 accumulation); on the CPU, which has no kernel for
+    that overload, a float32 matmul of the upcast values (products of bf16
+    values are exact in float32).  Float32 sums need TF32 off for matmuls,
+    PyTorch's default, which the callers keep."""
+    f32 = torch.float32
+    if a.is_cuda and a.dtype != f32:
+        return torch.mm(a, w, out_dtype=f32)
+    return a.to(f32) @ w.to(f32)
+
+
+def _conv_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """3x3 SAME conv of NHWC ``x`` with a ``[K, Cout]`` matrix ``w``
+    (:func:`_conv_matrix`): im2col and :func:`_mm_f32`, float32 NHWC out."""
+    b, h, wd, _ = x.shape
+    return _mm_f32(_im2col(x, w.shape[0]), w).reshape(b, h, wd, -1)
 
 
 def fold_bn_xla(cfg: NetConfig, params: Params, batch_stats: Params,
                 dtype=torch.bfloat16, device=None) -> Dict:
     """Fold eval-mode BN into the conv weights for :func:`folded_xla_apply`.
 
-    Conv weights are OIHW in ``dtype`` (bf16 by default); biases and the
-    heads float32, as in the JAX ``fold_bn_xla``.
+    Conv weights are ``[K, Cout]`` matrices (:func:`_conv_matrix`) in
+    ``dtype`` (bf16 by default); biases and the heads float32, as in the JAX
+    ``fold_bn_xla``.
     """
     dev = resolve_device(device)
     f32 = torch.float32
@@ -294,8 +331,10 @@ def fold_bn_xla(cfg: NetConfig, params: Params, batch_stats: Params,
     for blk, bs in zip(params["blocks"], batch_stats["blocks"]):
         w1, b1 = _fold(blk["conv1"]["w"], blk["bn1"], bs["bn1"])
         w2, b2 = _fold(blk["conv2"]["w"], blk["bn2"], bs["bn2"])
-        blocks.append({"w1": _oihw(w1.to(dtype)).to(dev), "b1": b1.to(dev),
-                       "w2": _oihw(w2.to(dtype)).to(dev), "b2": b2.to(dev)})
+        blocks.append({"w1": _conv_matrix(w1, dtype).to(dev),
+                       "b1": b1.to(dev),
+                       "w2": _conv_matrix(w2, dtype).to(dev),
+                       "b2": b2.to(dev)})
     pol_w, pol_b = _fold(params["policy_conv"]["w"], params["policy_bn"],
                          batch_stats["policy_bn"])
     val_w, val_b = _fold(params["value_conv"]["w"], params["value_bn"],
@@ -312,25 +351,26 @@ def fold_bn_xla(cfg: NetConfig, params: Params, batch_stats: Params,
         "val_fc2_b": _t(params["value_fc2"]["b"]),
     }
     out = {k: v.to(f32).contiguous().to(dev) for k, v in heads.items()}
-    out.update(stem_w=_oihw(stem_w.to(dtype)).to(dev), stem_b=stem_b.to(dev),
-               blocks=blocks)
+    out.update(stem_w=_conv_matrix(stem_w, dtype).to(dev),
+               stem_b=stem_b.to(dev), blocks=blocks)
     return out
 
 
 def folded_xla_tower(folded: Dict, obs: torch.Tensor) -> torch.Tensor:
     """The tower of :func:`folded_xla_apply`: NHWC ``obs`` -> the last block's
-    activations, NCHW in channels-last memory, in the storage dtype."""
+    activations, NHWC in the storage dtype.
+
+    Each conv keeps its float32 output and adds the bias to it before the
+    activation is rounded to the storage dtype, as the JAX conv with
+    ``preferred_element_type=float32`` does.
+    """
     bf = folded["stem_w"].dtype
-
-    def conv(x, w, b):
-        return F.conv2d(x, w, padding=1).to(torch.float32) + b[:, None, None]
-
-    x = obs.permute(0, 3, 1, 2).to(bf)                  # NCHW, channels last
-    h = torch.relu(conv(x, folded["stem_w"], folded["stem_b"])).to(bf)
+    h = torch.relu(_conv_mm(obs.to(bf), folded["stem_w"])
+                   + folded["stem_b"]).to(bf)
     for blk in folded["blocks"]:
         r = h
-        h = torch.relu(conv(h, blk["w1"], blk["b1"])).to(bf)
-        h = conv(h, blk["w2"], blk["b2"]).to(bf)
+        h = torch.relu(_conv_mm(h, blk["w1"]) + blk["b1"]).to(bf)
+        h = (_conv_mm(h, blk["w2"]) + blk["b2"]).to(bf)
         h = torch.relu((h + r).to(torch.float32)).to(bf)
     return h
 
@@ -339,16 +379,15 @@ def folded_xla_apply(cfg: NetConfig, folded: Dict, obs: torch.Tensor):
     """Eval forward with BN folded away and activations in the storage dtype
     (bf16) between layers: ``(logits [B, A], value [B, 1])``.
 
-    Each layer is ``conv + bias + relu``, the conv on bf16 tensors (cuDNN on
-    the card, float32 accumulation) and the bias and ReLU in float32; the
-    heads run in float32.
+    Each layer is ``conv + bias + relu``, the conv on bf16 tensors with
+    float32 sums and output (im2col and a bf16 matmul on the card), the bias
+    and ReLU in float32; the heads run in float32.
     """
     with torch.no_grad():
         h = folded_xla_tower(folded, obs)
         b = h.shape[0]
         hw = cfg.board_size * cfg.board_size
-        rows = h.permute(0, 2, 3, 1).to(torch.float32).reshape(
-            b * hw, cfg.channels)
+        rows = h.to(torch.float32).reshape(b * hw, cfg.channels)
         p = torch.relu(rows @ folded["pol_w"] + folded["pol_b"])
         logits = p.reshape(b, 2 * hw) @ folded["pol_fc_w"] + folded["pol_fc_b"]
         v = torch.relu(rows @ folded["val_w"] + folded["val_b"])

@@ -3,24 +3,28 @@
 
     python3 profile_search.py
 
-Runs the searches of ``chip_smoke.py``'s two main paths from positions 4
-random plies in, at batch 256, 15x15, with the 6x128 net from seed 0: PUCT
-(``chip_smoke.MAIN_MCTS``, the float32 ``ResNet`` with TF32 off) for
-``SIMS`` simulations in a tree sized for 400, and one whole Gumbel@64 search
-(``chip_smoke.GUMBEL_MCTS``, the fused bf16 tower).  Each runs once to warm
-up, once untraced and once under ``torch.profiler``, and prints:
+Runs the searches of ``chip_smoke.py``'s main paths from positions 4 random
+plies in, at batch 256, 15x15, with the 6x128 net of
+``chip_smoke.smoke_weights`` from seed 0: PUCT
+(``chip_smoke.MAIN_MCTS``) for ``SIMS`` simulations in a tree sized for 400,
+on the float32 ``ResNet`` with TF32 off and on the int8 tower kernel (the
+net quantized on ``random_calib_obs`` boards), and one whole Gumbel@64
+search (``chip_smoke.GUMBEL_MCTS``, the fused bf16 tower).  Each runs once
+to warm up, once untraced and once under ``torch.profiler``, and prints:
 
   - host wall time per simulation (``time.perf_counter`` around work that
     ends in ``torch.cuda.synchronize()``);
   - the card's busy share: the union of the device's kernel, copy and set
     intervals in the trace over the traced wall time;
   - device time per simulation in the network's torch ops (root and leaf
-    evals), in the tree kernels and the fused tower's kernels (by kernel
-    name), and in everything else (the game step, state gather and write,
-    encoding, priors);
+    evals), in the tree kernels and the towers' kernels (by kernel name),
+    and in everything else (the game step, state gather and write, encoding,
+    priors);
   - the kernels that take the most device time;
 
-and then each network's forward alone at batch 256, by CUDA events.
+and then each network's forward alone at batch 256, by CUDA events (the
+float32 ``ResNet``, the fused bf16 tower, the int8 tower kernel and the
+``torch._int_mm`` int8 forward, each with its heads).
 
 It needs the card, and exits 1 without one; it prints "not measured" where
 the trace has no device time.
@@ -40,10 +44,11 @@ from alphazero_gomoku_tpu_torch.games import make_env
 from alphazero_gomoku_tpu_torch.models import (
     NetConfig,
     bundle_of,
-    init_params,
     make_eval_fn,
 )
 from alphazero_gomoku_tpu_torch.ops import fused_net as fn
+from alphazero_gomoku_tpu_torch.ops import int8_net as q8
+from alphazero_gomoku_tpu_torch.ops import int8_tower as t8
 from alphazero_gomoku_tpu_torch.search.gumbel import run_gumbel_mcts
 from alphazero_gomoku_tpu_torch.search.tree_packed import run_mcts_packed
 from chip_smoke import (
@@ -53,6 +58,7 @@ from chip_smoke import (
     MAIN_MCTS,
     nvidia_smi,
     random_states,
+    smoke_weights,
     tower_flops,
 )
 
@@ -60,10 +66,11 @@ SIMS = 100   # simulations traced: a quarter of a move, in a 400-sim tree
 SEED = 0
 
 # the network runs inside this record_function range; the tree kernels and
-# the fused tower's kernels are found by kernel name (see _range_device_us)
+# the towers' kernels are found by kernel name (see _range_device_us)
 NETWORK = "network"
 TREE_KERNELS = ("select_walk", "gumbel_select_walk", "backup_paths")
 TOWER_KERNELS = ("conv3x3", "stem")
+INT8_TOWER_KERNELS = ("int8_conv",)
 
 
 def _ranged(name, fn):
@@ -190,7 +197,7 @@ def main() -> int:
 
     env = make_env("gomoku", BOARD)
     cfg = NetConfig.full(BOARD)
-    params, stats = init_params(cfg, SEED)
+    params, stats = smoke_weights(cfg, SEED, dev)
     net = bundle_of(cfg, params, stats, device=dev)
     folded = fn.fold_bn(cfg, params, stats, device=dev)
     eval_fn = make_eval_fn()
@@ -211,8 +218,22 @@ def main() -> int:
                         folded, states, gen)
         torch.cuda.synchronize()
 
+    q = q8.quantize_int8(cfg, params, stats, q8.random_calib_obs(cfg),
+                         device=dev)
+    packed = t8.pack_tower_bundle(cfg, q)
+    int8_eval = q8.make_int8_eval_fn(cfg)
+    tower_eval = t8.make_int8_tower_eval_fn(cfg)
+
+    def puct_int8():
+        run_mcts_packed(env, mcts, _ranged(NETWORK, tower_eval), packed,
+                        states, moves, gen)
+        torch.cuda.synchronize()
+
     profile_search(f"PUCT@{MAIN_MCTS.n_simulations}", puct, SIMS,
                    {"tree": TREE_KERNELS})
+    profile_search(f"PUCT@{MAIN_MCTS.n_simulations} int8 tower", puct_int8,
+                   SIMS, {"tree": TREE_KERNELS,
+                          "int8 tower": INT8_TOWER_KERNELS})
     profile_search(f"Gumbel@{GUMBEL_MCTS.n_simulations}", gumbel,
                    GUMBEL_MCTS.n_simulations,
                    {"tree": TREE_KERNELS, "fused tower": TOWER_KERNELS})
@@ -221,9 +242,14 @@ def main() -> int:
     flops = tower_flops(cfg, BATCH)
     for label, ms in (("float32 ResNet (cuDNN)", forward_ms(eval_fn, net, obs)),
                       ("fused bf16 tower + heads",
-                       forward_ms(fused_eval, folded, obs))):
+                       forward_ms(fused_eval, folded, obs)),
+                      ("int8 tower kernel + heads",
+                       forward_ms(tower_eval, packed, obs)),
+                      ("int8 torch._int_mm forward (int8_apply)",
+                       forward_ms(int8_eval, q, obs))):
         print(f"network forward alone, {label}: {ms:.4f} ms at batch {BATCH} "
-              f"({flops / ms / 1e9:.2f} TFLOP/s in the convolutions)")
+              f"({flops / ms / 1e9:.2f} TFLOP/s or TOP/s in the "
+              f"convolutions)")
     return 0
 
 

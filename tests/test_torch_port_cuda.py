@@ -19,6 +19,8 @@ from alphazero_gomoku_tpu_torch.models import (
     make_eval_fn,
 )
 from alphazero_gomoku_tpu_torch.ops import fused_net as fn
+from alphazero_gomoku_tpu_torch.ops import int8_net as q8
+from alphazero_gomoku_tpu_torch.ops import int8_tower as t8
 from alphazero_gomoku_tpu_torch.ops import tree_kernels as tk
 from alphazero_gomoku_tpu_torch.search import MCTSConfig
 from alphazero_gomoku_tpu_torch.search.gumbel import (
@@ -192,7 +194,7 @@ def test_exp_log_f32_on_the_card_equal_the_cpu():
 def test_fused_tower_kernel_close_to_plain(channels):
     """The kernel sums in another order than the plain version; a sum on the
     other side of a bf16 rounding boundary moves the next conv's input by a
-    bf16 step (see ``chip_smoke.FUSED_TOL``)."""
+    bf16 step (see ``chip_smoke.FUSED_TOWER_STEPS``)."""
     dev = _card()
     size, batch = 15, 40          # batch*225 is not a multiple of 64 pixels
     cfg = NetConfig(board_size=size, action_size=size * size,
@@ -242,3 +244,54 @@ def test_gumbel_search_kernels_equal_plain_and_count_launches():
                 assert fn.fused_tower.launches == 1 + walks
         for x, y in zip(*outs):
             assert torch.equal(x, y)
+
+
+def _int8_net(dev, size, blocks, channels, seed=0):
+    cfg = NetConfig(board_size=size, action_size=size * size,
+                    n_res_blocks=blocks, channels=channels)
+    q = q8.quantize_int8(cfg, *init_params(cfg, seed),
+                         q8.random_calib_obs(cfg, n=64, seed=1), device=dev)
+    return cfg, q, t8.pack_tower_bundle(cfg, q)
+
+
+# (board, blocks, channels, batch): a small net, a batch whose pixels are not
+# a multiple of the kernel's 128-pixel tile, and the main path's shape
+@pytest.mark.parametrize("size,blocks,channels,batch", [
+    (9, 2, 32, 11), (15, 2, 64, 40), (15, 6, 128, 256)])
+def test_int8_tower_kernel_equals_plain_and_int8_apply(size, blocks, channels,
+                                                       batch):
+    """Equal bit for bit: the integer sums are exact in any order and every
+    float step is the same IEEE operation (``csrc/int8_tower.cu``)."""
+    dev = _card()
+    cfg, q, packed = _int8_net(dev, size, blocks, channels)
+    env = make_env("gomoku", size)
+    obs = env.encode(_random_states(env, batch, 2 * size, 3, dev))
+    t8.reset_launch_counts()
+    got = t8.int8_tower(packed, obs)
+    assert t8.int8_tower.launches == 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, t8.int8_tower_plain(packed, obs))
+    assert torch.equal(got, q8.int8_tower_mm(q, obs))
+    logits, value = t8.int8_tower_apply(cfg, packed, obs)
+    want_logits, want_value = q8.int8_apply(cfg, q, obs)
+    assert torch.equal(logits, want_logits)
+    assert torch.equal(value, want_value)
+    assert torch.equal(t8.int8_tower(packed, obs), got)     # deterministic
+
+
+def test_int8_tower_wrapper_refuses_bad_cuda_inputs():
+    dev = _card()
+    cfg, q, packed = _int8_net(dev, 9, 1, 32)
+    obs = torch.zeros((4, 9, 9, 3), device=dev)
+    with pytest.raises(TypeError):
+        t8.int8_tower(packed, obs.double())
+    with pytest.raises(ValueError):
+        t8.int8_tower(packed, obs[0])
+    with pytest.raises(ValueError):
+        t8.int8_tower(packed, obs.cpu())        # weights on the card
+    with pytest.raises(ValueError, match="channels"):
+        _, _, wide = _int8_net(dev, 9, 1, 48)
+        t8.int8_tower(wide, obs)
+    bad = dict(packed, block_w=packed["block_w"].float())
+    with pytest.raises(TypeError):
+        t8.int8_tower(bad, obs)

@@ -49,8 +49,8 @@ def test_every_port_module_imports():
     """Importing each module must not build kernels or touch a device."""
     names = [m.name for m in pkgutil.walk_packages(
         alphazero_gomoku_tpu_torch.__path__, "alphazero_gomoku_tpu_torch.")]
-    assert "alphazero_gomoku_tpu_torch.ops.tree_kernels" in names
-    assert "alphazero_gomoku_tpu_torch.ops.fused_net" in names
+    for module in ("tree_kernels", "fused_net", "int8_net", "int8_tower"):
+        assert f"alphazero_gomoku_tpu_torch.ops.{module}" in names
     for name in names:
         importlib.import_module(name)
     from alphazero_gomoku_tpu_torch.ops import _build
@@ -58,6 +58,7 @@ def test_every_port_module_imports():
 
 
 def test_kernel_wrappers_have_no_fallback():
-    for name in ("tree_kernels.py", "fused_net.py"):
+    for name in ("tree_kernels.py", "fused_net.py", "int8_net.py",
+                 "int8_tower.py"):
         tree = ast.parse((PORT / "ops" / name).read_text())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), name
