@@ -24,8 +24,10 @@ Each kernel has three parts here:
     hand-written kernel in ``csrc/tree_kernels.cu`` or raises.  Each wrapper
     counts its kernel launches in its ``launches`` attribute.
 
-Only mode ``"backup"`` of ``backup_paths`` is ported; ``"vl"`` and
-``"finalize"`` (k-leaf search) wait for ROADMAP Queue A item 11.
+``backup_paths`` has the JAX kernel's three modes: ``"backup"`` (one
+simulation's backup), and ``"vl"`` / ``"finalize"``, the two halves of a
+k-leaf simulation (virtual loss on select, its replacement by the value
+after the network call).
 """
 
 from __future__ import annotations
@@ -233,7 +235,7 @@ def _library() -> ctypes.CDLL:
                                            p, p, p, p, p, p]
         lib.select_walk_launch.restype = i
         lib.backup_paths_launch.argtypes = [p, i, i, i, i, i, p, p, p, p, p,
-                                            p, p, i, p]
+                                            p, p, i, i, p]
         lib.backup_paths_launch.restype = i
         lib.gumbel_select_walk_launch.argtypes = [p, p, i, i, i, i, i, f, f,
                                                   i, p, p, p, p, p, p]
@@ -465,31 +467,44 @@ gumbel_select_walk.launches = 0
 # ----------------------------------------------------------------------
 # backup_paths
 # ----------------------------------------------------------------------
+BACKUP_MODES = ("backup", "vl", "finalize")   # csrc/tree_kernels.cu, by index
+
+
 def backup_paths_plain(packed: torch.Tensor, path_nodes: torch.Tensor,
                        path_actions: torch.Tensor, path_len: torch.Tensor,
                        values: torch.Tensor, expanding: torch.Tensor,
                        slot: int, layout: PackedLayout,
                        signed_priors: torch.Tensor,
-                       done: torch.Tensor) -> torch.Tensor:
+                       done: torch.Tensor, mode: str = "backup"
+                       ) -> torch.Tensor:
     """Plain PyTorch slot-tile write and path backup, IN PLACE on ``packed``.
 
-    Same semantics as :func:`backup_paths` in mode ``"backup"``; returns
-    ``packed``.
+    Same semantics as :func:`backup_paths` in each mode; returns ``packed``.
     """
+    if mode not in BACKUP_MODES:
+        raise ValueError(f"unknown backup mode: {mode!r}")
     b = packed.shape[0]
     a = layout.num_actions
     dev = packed.device
     tiles = node_tiles(packed, layout)
     n_max = layout.n_nodes - 1
     lanes = torch.arange(b, device=dev)
+    slot_idx = min(max(slot, 0), n_max)
 
-    tile = torch.zeros((b, GROUP, layout.seg), dtype=torch.float32, device=dev)
+    if mode == "finalize":
+        # later "vl" passes of the macro step may have visited or linked the
+        # slot node: every row but P and meta is kept
+        tile = tiles[:, slot_idx].clone()
+        tile[:, SL_META, :] = 0.0
+    else:
+        tile = torch.zeros((b, GROUP, layout.seg), dtype=torch.float32,
+                           device=dev)
+        tile[:, SL_C, :] = -1.0
     tile[:, SL_P, :] = -1.0
     tile[:, SL_P, :a] = signed_priors
-    tile[:, SL_C, :] = -1.0
     tile[:, SL_META, 0] = done.to(torch.float32)
     tile[:, SL_META, 1] = values
-    tiles[:, min(max(slot, 0), n_max)] = tile
+    tiles[:, slot_idx] = tile
 
     plen = path_len.long()
     expanding = expanding.bool()
@@ -504,8 +519,14 @@ def backup_paths_plain(packed: torch.Tensor, path_nodes: torch.Tensor,
         # so no two lanes' entries coincide
         n_old = tiles[lanes, node, SL_N, col]
         w_old = tiles[lanes, node, SL_W, col]
-        tiles[lanes, node, SL_N, col] = torch.where(active, n_old + 1.0, n_old)
-        tiles[lanes, node, SL_W, col] = torch.where(active, w_old + v, w_old)
+        if mode == "backup":        # N + 1, W + v
+            n_new, w_new = n_old + 1.0, w_old + v
+        elif mode == "vl":          # virtual loss: N + 1, W - 1, no flip
+            n_new, w_new = n_old + 1.0, w_old + -1.0
+        else:                       # finalize: W + (v + 1), N as it is
+            n_new, w_new = n_old, w_old + (v + 1.0)
+        tiles[lanes, node, SL_N, col] = torch.where(active, n_new, n_old)
+        tiles[lanes, node, SL_W, col] = torch.where(active, w_new, w_old)
         link = active & expanding & (i == plen - 1)
         c_old = tiles[lanes, node, SL_C, col]
         tiles[lanes, node, SL_C, col] = torch.where(link, float(slot), c_old)
@@ -517,24 +538,32 @@ def backup_paths(packed: torch.Tensor, path_nodes: torch.Tensor,
                  values: torch.Tensor, expanding: torch.Tensor, slot: int,
                  layout: PackedLayout, signed_priors: torch.Tensor,
                  done: torch.Tensor, mode: str = "backup") -> torch.Tensor:
-    """Write the fresh slot tile, then apply one simulation's backup.
+    """Write the slot tile, then apply one simulation's path update.
 
     IN PLACE on ``packed``, which is returned.  ``slot`` (a Python int, the
     same for every lane) is the node expanded this simulation; its tile gets
-    ``signed_priors`` ``[B, A]`` (padded to ``seg`` with -1), the ``done`` flag
-    ``[B]`` and the leaf value, with N = W = 0 and children -1.  Then each
-    lane's recorded path gets N += 1 and W += ±value, the sign flipping at
-    every hop up from the leaf, and on lanes with ``expanding`` set the last
-    edge is linked to ``slot``.  ``expanding`` and ``done`` may be bool or
-    int (nonzero = set).
+    ``signed_priors`` ``[B, A]`` (padded to ``seg`` with -1) and a meta row
+    of ``(done, values, 0, ...)``.  Then each lane's recorded path is
+    updated, and on lanes with ``expanding`` set the last edge is linked to
+    ``slot``.  ``expanding`` and ``done`` may be bool or int (nonzero = set).
+    ``mode`` (the JAX kernel's):
+
+      - ``"backup"``: the slot tile is fresh (N = W = 0, children -1); per
+        edge N += 1 and W += ±value, the sign flipping at every hop up from
+        the leaf.
+      - ``"vl"``: virtual loss, the select half of a k-leaf simulation; the
+        slot tile is fresh (the priors are a placeholder, ``values`` the
+        zeros the search passes); per edge N += 1 and W -= 1, no flip.
+      - ``"finalize"``: the slot tile's P and meta rows are replaced and its
+        other rows kept (later ``"vl"`` passes may have visited or linked
+        the node); per edge W += ±value + 1, cancelling the virtual loss,
+        and N as it is.
 
     CPU tensors take :func:`backup_paths_plain`; CUDA tensors the kernel.
+    ``backup_paths.launches`` counts the kernel's launches, and
+    ``backup_paths.mode_launches`` each mode's.
     """
-    if mode != "backup":
-        if mode in ("vl", "finalize"):
-            raise NotImplementedError(
-                f"backup_paths mode {mode!r} (k-leaf virtual loss) is not "
-                "ported yet (ROADMAP Queue A item 11)")
+    if mode not in BACKUP_MODES:
         raise ValueError(f"unknown backup mode: {mode!r}")
     b = _check_packed(packed, layout)
     dev = packed.device
@@ -555,7 +584,7 @@ def backup_paths(packed: torch.Tensor, path_nodes: torch.Tensor,
     if dev.type == "cpu":
         return backup_paths_plain(packed, path_nodes, path_actions, path_len,
                                   values, expanding, slot, layout,
-                                  signed_priors, done)
+                                  signed_priors, done, mode)
     if dev.type != "cuda":
         raise ValueError(f"backup_paths: unsupported device {dev}")
     lib = _library()
@@ -565,19 +594,23 @@ def backup_paths(packed: torch.Tensor, path_nodes: torch.Tensor,
             layout.num_actions, d, path_nodes.data_ptr(),
             path_actions.data_ptr(), path_len.data_ptr(), values.data_ptr(),
             expanding.data_ptr(), signed_priors.data_ptr(), done.data_ptr(),
-            slot, torch.cuda.current_stream(dev).cuda_stream)
+            slot, BACKUP_MODES.index(mode),
+            torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "backup_paths")
     backup_paths.launches += 1
+    backup_paths.mode_launches[mode] += 1
     return packed
 
 
 backup_paths.launches = 0
+backup_paths.mode_launches = dict.fromkeys(BACKUP_MODES, 0)
 
 
 def reset_launch_counts():
     select_walk.launches = 0
     gumbel_select_walk.launches = 0
     backup_paths.launches = 0
+    backup_paths.mode_launches = dict.fromkeys(BACKUP_MODES, 0)
 
 
 class TreeOps(NamedTuple):

@@ -8,3 +8,9 @@ from alphazero_gomoku_tpu_torch.search.tree import (  # noqa: F401
     MCTSConfig,
     run_mcts_with_q,
 )
+from alphazero_gomoku_tpu_torch.search.tree_packed import (  # noqa: F401
+    PackedCarry,
+    init_packed_carry,
+    packed_advance_root,
+    packed_carry_from_numpy,
+)

@@ -39,14 +39,25 @@ class MCTSConfig:
 
     The packed PUCT search reads ``n_simulations``, ``cpuct``, the
     ``dirichlet_*`` and ``add_noise`` fields, ``max_nodes``, ``max_depth``,
-    ``fpu_mode`` and ``terminal_value_mode``; the Gumbel search
-    (``search="gumbel"``, ``search/gumbel.py``) reads ``n_simulations``,
-    ``max_nodes``, ``max_depth``, ``terminal_value_mode`` and the
+    ``fpu_mode``, ``terminal_value_mode``, ``leaves_per_sim`` and
+    ``reuse_budget``; the Gumbel search (``search="gumbel"``,
+    ``search/gumbel.py``) reads ``n_simulations``, ``max_nodes``,
+    ``max_depth``, ``terminal_value_mode``, ``reuse_budget`` and the
     ``gumbel_*`` fields.  The port has only the packed search, so there is
-    no ``backend`` field.  The other fields name searches that are not
-    ported yet, and a value other than the default raises: subtree reuse
-    (``reuse_budget``) and k-leaf search (``leaves_per_sim``) wait for
-    ROADMAP Queue A item 11.
+    no ``backend`` field.
+
+    ``leaves_per_sim = k > 1`` runs k-leaf virtual-loss PUCT: each macro
+    step walks k leaves in turn (a virtual loss on each path steers the next
+    walk away), evaluates them in one network call of ``k * B`` boards and
+    then backs them up (``tree_packed.run_mcts_packed_with_tree``).
+
+    ``reuse_budget = R > 0`` turns on cross-move subtree reuse: the caller
+    threads the search's ``PackedCarry`` through
+    ``tree_packed.packed_advance_root`` between moves, which re-roots each
+    tree at the played action and keeps at most R nodes of the subtree in
+    slots ``[0, R)``; the next search's simulations then take slots R,
+    R+1, ...  Reuse is refused with ``leaves_per_sim > 1``, as in the JAX
+    package.
 
     ``gumbel_round_parallel`` batches each halving round's simulations (one
     per surviving root action) into one walk and one network call.  It
@@ -63,7 +74,7 @@ class MCTSConfig:
     dirichlet_epsilon: float = 0.03
     dirichlet_moves: int = 10
     add_noise: bool = True
-    max_nodes: Optional[int] = None  # default: n_simulations + 2
+    max_nodes: Optional[int] = None  # default: n_simulations+2+reuse_budget
     max_depth: int = 0  # 0 = unbounded (the node capacity)
     fpu_mode: str = "zero"
     leaves_per_sim: int = 1
@@ -90,24 +101,25 @@ class MCTSConfig:
         elif self.gumbel_round_parallel:
             raise ValueError(
                 "gumbel_round_parallel requires search='gumbel'")
-        if self.leaves_per_sim != 1:
-            raise NotImplementedError(
-                "k-leaf search (leaves_per_sim > 1) is not ported yet "
-                "(ROADMAP Queue A item 11)")
-        if self.reuse_budget != 0:
-            raise NotImplementedError(
-                "subtree reuse (reuse_budget > 0) is not ported yet "
-                "(ROADMAP Queue A item 11)")
+        if self.leaves_per_sim < 1:
+            raise ValueError(f"leaves_per_sim={self.leaves_per_sim} < 1")
+        if (self.leaves_per_sim > 1
+                and self.n_simulations % self.leaves_per_sim != 0):
+            raise ValueError(
+                f"n_simulations={self.n_simulations} not divisible by "
+                f"leaves_per_sim={self.leaves_per_sim}")
 
     @property
     def node_capacity(self) -> int:
-        # root + one slot per simulation + the JAX kernels' reserved "park"
-        # tile, kept so the packed layouts of both packages match
-        floor = self.n_simulations + 2
+        # with reuse, slots [0, reuse_budget) hold the carried subtree and
+        # the simulations take the slots from reuse_budget upward; then one
+        # slot per simulation, and the JAX kernels' reserved "park" tile,
+        # kept so the packed layouts of both packages match
+        floor = self.n_simulations + 2 + self.reuse_budget
         cap = self.max_nodes or floor
         if cap < floor:
             raise ValueError(
-                f"max_nodes={cap} < n_simulations+2={floor}")
+                f"max_nodes={cap} < n_simulations+2+reuse_budget={floor}")
         return cap
 
     @property

@@ -1,7 +1,9 @@
 """Lockstep batched self-play: B games advance one move at a time together.
 
 Counterpart of ``alphazero_gomoku_tpu/selfplay/runner.py:38-318``
-(``SelfPlayConfig``, ``Trajectories``, ``sample_actions``, ``play_games``).
+(``SelfPlayConfig``, ``_pcr_cheap_mcts``, ``center_mask``,
+``random_center_actions``, ``Trajectories``, ``sample_actions``,
+``play_games``).
 The JAX runner is one ``while_loop`` on the device; here the move loop is
 Python, and it stops when every game is done or ``max_moves`` is reached, as
 the JAX loop does.
@@ -17,10 +19,29 @@ Semantics as in the JAX runner:
     the root value and an ``active`` flag; finished games are frozen by
     ``step_safe`` and their later records marked inactive.
 
-Not ported yet, each refused with an error: subtree reuse, playout cap
-randomization (``pcr_cheap_sims``) and the random opening
-(``opening_random_moves``).  ``collect_examples`` and the
-symmetry augmentation wait for the training slice.
+Options, as in the JAX runner:
+  - subtree reuse (``mcts.reuse_budget > 0``, at least 8 games): the
+    searched tree is carried from move to move (a ``PackedCarry``, from
+    ``init_packed_carry`` at move 0) and re-rooted at the played moves by
+    ``packed_advance_root``;
+  - playout cap randomization (``pcr_cheap_sims > 0``): each ply is
+    searched with the full ``mcts`` with probability ``pcr_full_prob``,
+    else with ``pcr_cheap_sims`` simulations and no root noise; the draw is
+    one for the whole batch, and a cheap ply records an all-zero pi;
+  - the random opening (``opening_random_moves``): the first plies are
+    uniform random legal moves in the centre 9x9 (``random_center_actions``)
+    and their records are inactive.  The search still runs on those plies,
+    so a carried tree follows the game.
+
+``play_games`` draws from its generator in this order each ply: with PCR,
+one uniform for the full / cheap draw; the search's draws (the Dirichlet
+noise of a PUCT search with root noise on, or a Gumbel search's root
+uniforms); with PUCT, the ``[B, A]`` sampling uniforms; on an opening ply,
+the ``[B, A]`` opening uniforms.
+
+``collect_examples``, the symmetry augmentation and
+``play_games_continuous`` wait for the training slice (ROADMAP Queue A
+item 8).
 """
 
 from __future__ import annotations
@@ -37,6 +58,12 @@ from alphazero_gomoku_tpu_torch.search.tree import (
     MCTSConfig,
     run_mcts_with_q,
 )
+from alphazero_gomoku_tpu_torch.search.tree_packed import (
+    init_packed_carry,
+    packed_advance_root,
+    run_gumbel_packed_with_tree,
+    run_mcts_packed_with_tree,
+)
 
 # smallest positive normal f32: the floor of the Gumbel-max uniforms
 # (jax.random.gumbel draws them from [tiny, 1))
@@ -49,21 +76,68 @@ class SelfPlayConfig:
     mcts: MCTSConfig
     temp_threshold: int = 10
     max_moves: int = 0  # 0 => board_size ** 2
+    # plies played uniformly at random in the centre, and not recorded
     opening_random_moves: int = 0
+    # playout cap randomization (KataGo, arXiv:1902.10565 §3.1): a ply is a
+    # full search with probability pcr_full_prob, else a cheap one of
+    # pcr_cheap_sims simulations without root noise; 0 = off
     pcr_cheap_sims: int = 0
-
-    def __post_init__(self):
-        if self.opening_random_moves:
-            raise NotImplementedError(
-                "the random opening (opening_random_moves > 0) is not ported "
-                "yet (ROADMAP Queue A item 11)")
-        if self.pcr_cheap_sims:
-            raise NotImplementedError(
-                "playout cap randomization (pcr_cheap_sims > 0) is not "
-                "ported yet (ROADMAP Queue A item 11)")
+    pcr_full_prob: float = 0.25
 
     def resolved_max_moves(self, env) -> int:
         return self.max_moves or env.num_actions
+
+
+def _pcr_cheap_mcts(cfg: SelfPlayConfig) -> MCTSConfig:
+    """The cheap search of playout cap randomization: ``pcr_cheap_sims``
+    simulations, no root noise, and the full search's node capacity (so a
+    carried tree fits both)."""
+    if cfg.pcr_cheap_sims >= cfg.mcts.n_simulations:
+        raise ValueError(
+            f"pcr_cheap_sims={cfg.pcr_cheap_sims} must be below "
+            f"n_simulations={cfg.mcts.n_simulations}")
+    if cfg.mcts.leaves_per_sim > 1:
+        raise ValueError(
+            "playout cap randomization is not supported with "
+            "leaves_per_sim > 1")
+    return dataclasses.replace(
+        cfg.mcts, n_simulations=cfg.pcr_cheap_sims, add_noise=False,
+        max_nodes=cfg.mcts.node_capacity)
+
+
+def center_mask(env, device=None) -> torch.Tensor:
+    """f32 ``[A]`` mask of the centre 9x9 (the whole board if smaller): the
+    random opening's region."""
+    size = env.size
+    span = min(9, size)
+    r0 = (size - span) // 2
+    ar = torch.arange(size, device=resolve_device(device))
+    rows = (ar >= r0) & (ar < r0 + span)
+    return (rows[:, None] & rows[None, :]).reshape(-1).to(torch.float32)
+
+
+def random_center_actions(legal: torch.Tensor, center: torch.Tensor,
+                          generator: Optional[torch.Generator] = None,
+                          uniforms: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """A uniform random legal action in the centre per lane, int64 ``[B]``;
+    uniform over the legal actions where the centre is full.
+
+    ``legal`` is f32 ``[B, A]`` (1 = legal), ``center`` f32 ``[A]``.  The
+    sample is the argmax of ``where(pool, 0, -1e30) + g`` with Gumbel noise
+    ``g = -log(-log(u))``, as ``jax.random.categorical`` takes it; the
+    uniforms ``u`` (``[B, A]`` in ``[tiny, 1)``) are ``uniforms`` when given
+    (tests inject the JAX package's draw), else a draw from ``generator``.
+    """
+    in_center = legal * center
+    pool = torch.where(in_center.sum(dim=-1, keepdim=True) > 0, in_center,
+                       legal)
+    logits = torch.where(pool > 0, 0.0, -1e30)
+    if uniforms is None:
+        uniforms = torch.rand(legal.shape, generator=generator,
+                              device=legal.device)
+    gumbel = -torch.log(-torch.log(torch.clamp(uniforms, min=_F32_TINY)))
+    return torch.argmax(logits + gumbel, dim=-1)
 
 
 class Trajectories(NamedTuple):
@@ -108,8 +182,8 @@ def play_games(env, cfg: SelfPlayConfig, eval_fn: EvalFn, net_params,
     """Play ``cfg.batch_games`` lockstep games until all are done or
     ``max_moves`` moves are played.
 
-    ``generator`` (on ``device``) gives the root noise and the move samples
-    (PUCT), or the root Gumbel noise (Gumbel): one ``[B, A]`` draw per move.
+    ``generator`` (on ``device``) gives every random draw, in the order the
+    module's docstring lists.
     """
     dev = resolve_device(device)
     batch = cfg.batch_games
@@ -117,6 +191,15 @@ def play_games(env, cfg: SelfPlayConfig, eval_fn: EvalFn, net_params,
     size = env.size
     a = env.num_actions
     states = env.init_batch(batch, dev)
+    gumbel = cfg.mcts.search == "gumbel"
+    reuse = cfg.mcts.reuse_budget > 0
+    if reuse and batch < 8:
+        raise ValueError(
+            "self-play subtree reuse requires batch_games >= 8, as in the "
+            "JAX package (its packed kernels' lane floor)")
+    tree = init_packed_carry(env, cfg.mcts, states) if reuse else None
+    cheap_mcts = _pcr_cheap_mcts(cfg) if cfg.pcr_cheap_sims > 0 else None
+    center = center_mask(env, dev)
 
     boards = torch.zeros((max_moves, batch, size, size), dtype=torch.int8,
                          device=dev)
@@ -131,29 +214,54 @@ def play_games(env, cfg: SelfPlayConfig, eval_fn: EvalFn, net_params,
         if bool(states.done.all()):
             break
         active = ~states.done
-        if cfg.mcts.search == "gumbel":
-            pi, root_q, winner = run_gumbel_mcts(env, cfg.mcts, eval_fn,
-                                                 net_params, states, generator)
+        full = True
+        if cheap_mcts is not None:
+            full = bool(torch.rand((), generator=generator, device=dev)
+                        < cfg.pcr_full_prob)
+        mcfg = cfg.mcts if full else cheap_mcts
+        legal = env.legal_mask(states)
+        if gumbel:
+            if reuse:
+                pi, root_q, winner, tree = run_gumbel_packed_with_tree(
+                    env, mcfg, eval_fn, net_params, states, generator,
+                    carry=tree)
+            else:
+                pi, root_q, winner = run_gumbel_mcts(
+                    env, mcfg, eval_fn, net_params, states, generator)
+            # the halving winner is the move: no temperature sampling
             actions = torch.where(active, winner, 0)
         else:
             move_nums = torch.full((batch,), t, dtype=torch.int32,
                                    device=dev)
-            pi, root_q = run_mcts_with_q(env, cfg.mcts, eval_fn, net_params,
-                                         states, move_nums, generator)
+            if reuse:
+                pi, root_q, tree = run_mcts_packed_with_tree(
+                    env, mcfg, eval_fn, net_params, states, move_nums,
+                    generator, carry=tree)
+            else:
+                pi, root_q = run_mcts_with_q(env, mcfg, eval_fn, net_params,
+                                             states, move_nums, generator)
             temp = torch.clamp(1.0 - torch.tensor(t, dtype=torch.float32)
                                / cfg.temp_threshold, min=0.0)
-            legal = env.legal_mask(states)
             # done games have an all-zero pi; give them a harmless action 0
             safe_pi = torch.where(active[:, None], pi, 1.0)
             actions = sample_actions(safe_pi, temp, legal | ~active[:, None],
                                      generator)
+        opening = t < cfg.opening_random_moves
+        if opening:
+            actions = random_center_actions(legal.to(torch.float32), center,
+                                            generator)
         boards[t] = states.board
         players[t] = states.to_move
-        pis[t] = pi
+        # a cheap ply's pi is all zero: a policy target of weight 0, while
+        # the record still trains the value
+        pis[t] = pi if full else torch.zeros_like(pi)
         root_qs[t] = root_q
-        active_rec[t] = active
+        # an opening ply's move is not the search's: its record is inactive
+        active_rec[t] = active & (not opening)
         actions_rec[t] = actions.to(torch.int32)
         states = env.step_safe(states, actions)
+        if reuse:
+            tree = packed_advance_root(env, cfg.mcts, tree, actions)
 
     return Trajectories(
         boards=boards,

@@ -19,9 +19,21 @@ weights made from ``--seed`` (their BN stats fitted to random boards,
     ``fused_tower``; then 2 moves of its round-parallel form;
   - PUCT@400 on the int8 tower (``bench.py --infer int8t``: the net
     quantized on ``random_calib_obs`` boards), 8 moves: kernels
-    ``select_walk``, ``backup_paths`` and ``int8_tower``.
+    ``select_walk``, ``backup_paths`` and ``int8_tower``;
+  - the same with k-leaf virtual-loss search (``leaves_per_sim=4``,
+    ``bench.py --kleaf 4``), 8 moves: kernels ``select_walk``,
+    ``backup_paths`` in modes ``"vl"`` and ``"finalize"`` and
+    ``int8_tower``;
+  - Gumbel@64 with subtree reuse (``reuse_budget=48``, the shipped nets'
+    self-play recipe, ``TRAINING_GUIDE.md:139``) on the fused bf16 tower,
+    8 moves: kernels ``gumbel_select_walk``, ``backup_paths`` and
+    ``fused_tower``.
 
-Each path's launch counts are set to 0 just before it and read just after.
+Each path's launch counts are set to 0 just before it and read just after;
+every kernel a path does not name must launch 0 times on it.  The k-leaf
+search and the reuse searches (with ``packed_advance_root`` between moves)
+are also held, on the kernels, against the same searches on the plain
+versions.
 Every phase prints its seconds.  Nothing is caught: a failed phase exits
 non-zero.  Without a CUDA card it exits 1 before any result.  The last lines
 are the card's ``nvidia-smi`` name and power limit, a JSON line with each
@@ -53,7 +65,11 @@ from alphazero_gomoku_tpu_torch.ops import fused_net as fn
 from alphazero_gomoku_tpu_torch.ops import int8_net as q8
 from alphazero_gomoku_tpu_torch.ops import int8_tower as t8
 from alphazero_gomoku_tpu_torch.ops import tree_kernels as tk
-from alphazero_gomoku_tpu_torch.search import MCTSConfig
+from alphazero_gomoku_tpu_torch.search import (
+    MCTSConfig,
+    init_packed_carry,
+    packed_advance_root,
+)
 from alphazero_gomoku_tpu_torch.search.gumbel import (
     halving_schedule,
     run_gumbel_mcts,
@@ -84,6 +100,9 @@ GUMBEL_MCTS = MCTSConfig(n_simulations=GUMBEL_SIMS, search="gumbel",
                          gumbel_max_considered=GUMBEL_M, add_noise=False,
                          max_depth=56)
 PARALLEL_MOVES = 2   # moves of the round-parallel Gumbel search
+KLEAF = 4            # leaves per simulation of the k-leaf path (bench.py --kleaf)
+REUSE_BUDGET = 48    # the shipped nets' --mcts-reuse-budget (TRAINING_GUIDE.md)
+REUSE_MOVES = 3      # moves of the reuse searches held kernels vs plain
 FAN = 16             # lanes per tree of the fan-out walk held against plain
 # the fused tower against its plain version: both round each conv input to
 # bf16 and sum exact bf16 products in float32, in different orders (tensor
@@ -119,6 +138,14 @@ KERNEL_ROWS = {
         source="alphazero_gomoku_tpu_torch/csrc/tree_kernels.cu",
         replaces="alphazero_gomoku_tpu/ops/tree_kernels.py:297"),
     "backup_paths": dict(
+        source="alphazero_gomoku_tpu_torch/csrc/tree_kernels.cu",
+        replaces="alphazero_gomoku_tpu/ops/tree_kernels.py:780"),
+    # modes "vl" and "finalize" of the same kernel and pallas_call (branches
+    # of _backup_kernel_serial, tree_kernels.py:541)
+    "backup_paths_vl": dict(
+        source="alphazero_gomoku_tpu_torch/csrc/tree_kernels.cu",
+        replaces="alphazero_gomoku_tpu/ops/tree_kernels.py:780"),
+    "backup_paths_finalize": dict(
         source="alphazero_gomoku_tpu_torch/csrc/tree_kernels.cu",
         replaces="alphazero_gomoku_tpu/ops/tree_kernels.py:780"),
     "gumbel_select_walk": dict(
@@ -323,20 +350,23 @@ def int8_tower_bound(cfg: NetConfig, batch: int):
     return bound(nbytes, tower_flops(cfg, batch), INT8_OPS_PER_S)
 
 
-def backup_bound(layout, plen, expanding, depth):
+def backup_bound(layout, plen, expanding, mode="backup"):
     """What ``backup_paths`` must move: the slot tile's N, W and C rows at
     ``num_actions`` columns, its P row at ``seg`` columns (the -1 padding is
     part of the packed layout that the exact checks compare) and its two meta
-    floats, written; the priors and per-lane inputs read; per hop the path
-    entry read and N, W read and written; C written on the expansion edge.
-    Rows 5-7 are left out: they are zero from ``init_packed`` and nothing
-    reads them."""
+    floats, written, and in mode ``"finalize"`` its N, W and C rows read
+    too (they are kept); the priors and per-lane inputs read; per hop the
+    path entry read, and N and W read and written ("finalize": W only); C
+    written on the expansion edge.  Rows 5-7 are left out: they are zero
+    from ``init_packed`` (or kept) and nothing reads them."""
     b = plen.shape[0]
     a = layout.num_actions
     hops = int(plen.sum())
     tile = (3 * a + layout.seg + 2) * 4
-    nbytes = (b * tile + b * a * 4 + b * (4 + 4 + 1 + 1) + hops * (8 + 16)
-              + int(expanding.sum()) * 4)
+    kept = b * 3 * a * 4 if mode == "finalize" else 0
+    per_hop = 8 + (8 if mode == "finalize" else 16)
+    nbytes = (b * tile + kept + b * a * 4 + b * (4 + 4 + 1 + 1)
+              + hops * per_hop + int(expanding.sum()) * 4)
     return bound(nbytes, 2 * hops)
 
 
@@ -390,8 +420,8 @@ def main() -> int:
         gen = phase_gen(args.seed, 3, dev)
         states = random_states(env, BATCH, 4, gen, dev)
         moves = torch.full((BATCH,), 4, dtype=torch.int32, device=dev)
-        _, _, tree = run_mcts_packed_with_tree(env, grow, eval_fn, net,
-                                               states, moves, gen)
+        tree = run_mcts_packed_with_tree(env, grow, eval_fn, net, states,
+                                         moves, gen)[2].packed
         log(f"grew the tree: {grow.n_simulations} simulations, packed "
             f"{tuple(tree.shape)}")
 
@@ -453,7 +483,7 @@ def main() -> int:
         eager_ms = cuda_ms(backup_call, reps=50)
         plain_ms = cuda_ms(lambda: tk.backup_paths_plain(scratch, *bargs),
                            reps=10, warmup=1)
-        bound_ms, bound_by = backup_bound(layout, plen, expanding, depth)
+        bound_ms, bound_by = backup_bound(layout, plen, expanding)
         rows["backup_paths"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                     bound_ms=bound_ms, bound_by=bound_by,
                                     library_ms=None)
@@ -515,7 +545,10 @@ def main() -> int:
             f" GiB")
 
     gumbel_phases(args, env, net_cfg, weights, net, dev, rows, smi)
-    int8_phases(args, env, net_cfg, weights, net, dev, rows, smi)
+    int8_bundle, int8_rate = int8_phases(args, env, net_cfg, weights, net,
+                                         dev, rows, smi)
+    extension_phases(args, env, net_cfg, weights, net, dev, rows, smi,
+                     int8_bundle, int8_rate)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi())
@@ -532,19 +565,25 @@ def reset_launch_counts():
 
 
 def launch_counts():
+    """Each row's launches: ``backup_paths`` counts its modes apart."""
+    modes = tk.backup_paths.mode_launches
     return {"select_walk": tk.select_walk.launches,
-            "backup_paths": tk.backup_paths.launches,
+            "backup_paths": modes["backup"],
+            "backup_paths_vl": modes["vl"],
+            "backup_paths_finalize": modes["finalize"],
             "gumbel_select_walk": tk.gumbel_select_walk.launches,
             "fused_tower": fn.fused_tower.launches,
             "int8_tower": t8.int8_tower.launches}
 
 
 def expect_launches(path: str, got, want):
+    """``want`` gives the kernels a path launches; every other one must
+    launch 0 times."""
     log(f"launches on the {path}: {got}")
-    for name, n in want.items():
-        if got[name] != n:
-            raise AssertionError(f"{path}: {name} launched {got[name]} "
-                                 f"times, expected {n}")
+    for name, n in got.items():
+        if n != want.get(name, 0):
+            raise AssertionError(f"{path}: {name} launched {n} times, "
+                                 f"expected {want.get(name, 0)}")
 
 
 def gumbel_phases(args, env, net_cfg, weights, net, dev, rows, smi):
@@ -563,8 +602,8 @@ def gumbel_phases(args, env, net_cfg, weights, net, dev, rows, smi):
                f"{depth})"):
         gen = phase_gen(args.seed, 6, dev)
         states = random_states(env, BATCH, 4, gen, dev)
-        *_, tree = run_gumbel_packed_with_tree(env, GUMBEL_MCTS, fused_eval,
-                                               folded, states, gen)
+        tree = run_gumbel_packed_with_tree(env, GUMBEL_MCTS, fused_eval,
+                                           folded, states, gen)[3].packed
         log(f"grew the tree: Gumbel@{GUMBEL_SIMS} m={GUMBEL_M}, packed "
             f"{tuple(tree.shape)}")
         legal = tree[:, tk.SL_P, :layout.num_actions] >= 0
@@ -875,6 +914,217 @@ def int8_phases(args, env, net_cfg, weights, net, dev, rows, smi):
         check_trajectories(env, traj, MOVES)
         log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
             f" GiB")
+    return (tower_eval, packed), moves_done / seconds
+
+
+def extension_phases(args, env, net_cfg, weights, net, dev, rows, smi,
+                     int8_bundle, int8_rate):
+    """Phases 15-18: ``backup_paths`` modes ``"vl"`` and ``"finalize"``
+    against their plain versions, the k-leaf and reuse searches on the
+    kernels against the plain versions, and self-play on both paths."""
+    eval_fn = make_eval_fn()
+    kleaf = dataclasses.replace(MAIN_MCTS, leaves_per_sim=KLEAF)
+    grow = dataclasses.replace(kleaf, n_simulations=GROW_SIMS,
+                               max_nodes=MAIN_MCTS.node_capacity)
+    layout = tk.packed_layout(env.num_actions, grow.node_capacity)
+    depth = grow.depth_limit
+    with Phase(f"15 backup_paths modes vl and finalize against their plain "
+               f"versions (batch {BATCH}, tree of {GROW_SIMS} k-leaf sims, "
+               f"k={KLEAF}, {layout.n_nodes} nodes)"):
+        gen = phase_gen(args.seed, 15, dev)
+        states = random_states(env, BATCH, 4, gen, dev)
+        moves = torch.full((BATCH,), 4, dtype=torch.int32, device=dev)
+        _, _, grown = run_mcts_packed_with_tree(env, grow, eval_fn, net,
+                                                states, moves, gen)
+        tree = grown.packed
+        _, action, pnodes, pacts, plen = tk.select_walk(tree, layout,
+                                                        grow.cpuct, depth)
+        expanding = action >= 0
+        slot = GROW_SIMS + 1
+        legal = torch.rand((BATCH, env.num_actions), generator=gen,
+                           device=dev) < 0.9
+        placeholder = torch.where(
+            legal, 1.0 / legal.sum(dim=1, keepdim=True), -1.0)
+        priors = torch.where(legal, torch.rand(legal.shape, generator=gen,
+                                               device=dev), -1.0)
+        values = torch.rand(BATCH, generator=gen, device=dev) * 2 - 1
+        done = torch.rand(BATCH, generator=gen, device=dev) < 0.1
+        zeros = torch.zeros(BATCH, device=dev)
+        mode_args = {
+            "vl": (pnodes, pacts, plen, zeros, expanding, slot, layout,
+                   placeholder, done),
+            "finalize": (pnodes, pacts, plen, values, expanding, slot,
+                         layout, priors, done)}
+        for mode, bargs in mode_args.items():
+            got = tk.backup_paths(tree.clone(), *bargs, mode=mode)
+            want = tk.backup_paths_plain(tree.clone(), *bargs, mode=mode)
+            if not torch.equal(got, want):
+                raise AssertionError(f"backup_paths {mode}: kernel != plain "
+                                     f"(tolerance 0)")
+            if torch.equal(got, tree):
+                raise AssertionError(f"backup_paths {mode} changed nothing")
+            err = float((got - want).abs().max())
+            # finalize reads the tile vl left: the macro step's order
+            tree = got
+            scratch = tree.clone()
+
+            def call(bargs=bargs, mode=mode):
+                return tk.backup_paths(scratch, *bargs, mode=mode)
+
+            ms = graph_ms(call, reps=50)
+            eager_ms = cuda_ms(call, reps=50)
+            plain_ms = cuda_ms(lambda bargs=bargs, mode=mode:
+                               tk.backup_paths_plain(scratch, *bargs,
+                                                     mode=mode),
+                               reps=10, warmup=1)
+            bound_ms, bound_by = backup_bound(layout, plen, expanding, mode)
+            rows[f"backup_paths_{mode}"].update(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+            log(f"backup_paths {mode}: kernel == plain on the whole packed "
+                f"tree, tolerance 0 (max abs err {err}); kernel {ms:.4f} ms "
+                f"(CUDA graph replay; eager wrapper call {eager_ms:.4f} ms), "
+                f"plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
+                f"({bound_by}); no single PyTorch call computes the backup, "
+                f"so library_ms is null")
+        del tree, scratch, grown
+
+    params, stats = weights
+    folded = fn.fold_bn(net_cfg, params, stats, device=dev)
+    fused_eval = fn.make_fused_eval_fn(net_cfg)
+    with Phase(f"16 k-leaf and reuse searches, kernels against plain (batch "
+               f"{PI_BATCH}, {PI_SIMS} sims, k={KLEAF}; {REUSE_MOVES} moves "
+               f"with reuse budget {REUSE_BUDGET}; cudnn deterministic)"):
+        torch.backends.cudnn.deterministic = True
+        states = random_states(env, PI_BATCH, 6,
+                               phase_gen(args.seed, 16, dev), dev)
+        moves = torch.full((PI_BATCH,), 6, dtype=torch.int32, device=dev)
+        cfg = dataclasses.replace(kleaf, n_simulations=PI_SIMS)
+        out = {}
+        for label, ops in (("kernels", tk.KERNELS), ("plain", tk.PLAIN)):
+            g = phase_gen(args.seed, 116, dev)
+            pi, q, tree = run_mcts_packed_with_tree(
+                env, cfg, eval_fn, net, states, moves, g, ops=ops)
+            out[label] = (pi, q, tree.packed)
+        for name, k, p in zip(("pi", "root_q", "packed tree"),
+                              out["kernels"], out["plain"]):
+            if not torch.equal(k, p):
+                raise AssertionError(f"k-leaf search {name}: kernels != plain")
+        log(f"k-leaf search (k={KLEAF}): pi, root_q and the packed tree equal "
+            f"exactly over {PI_BATCH} lanes")
+        puct = dataclasses.replace(MAIN_MCTS, n_simulations=PI_SIMS,
+                                   reuse_budget=REUSE_BUDGET)
+        gumbel = dataclasses.replace(GUMBEL_MCTS, reuse_budget=REUSE_BUDGET)
+        for label, cfg, ev, bundle in (
+                ("PUCT", puct, eval_fn, net),
+                ("Gumbel serial", gumbel, fused_eval, folded),
+                ("Gumbel round-parallel",
+                 dataclasses.replace(gumbel, gumbel_round_parallel=True),
+                 fused_eval, folded)):
+            traces = [reuse_trace(env, cfg, ev, bundle, states, moves,
+                                  phase_gen(args.seed, 216, dev), ops)
+                      for ops in (tk.KERNELS, tk.PLAIN)]
+            for i, (k, p) in enumerate(zip(*traces)):
+                if not torch.equal(k, p):
+                    raise AssertionError(f"{label} reuse search: kernels != "
+                                         f"plain at output {i}")
+            log(f"{label} with reuse over {REUSE_MOVES} moves: pi, root_q, "
+                f"actions and every carry field after each search and "
+                f"advance equal exactly over {PI_BATCH} lanes")
+        torch.backends.cudnn.deterministic = False
+
+    tower_eval, packed = int8_bundle
+    sp_cfg = SelfPlayConfig(batch_games=BATCH, mcts=kleaf, temp_threshold=10,
+                            max_moves=MOVES)
+    gen = phase_gen(args.seed, 17, dev)
+    macro = SIMS // KLEAF
+    with Phase(f"17a k-leaf main path warm-up (batch {BATCH}, 1 move, 8 sims)"):
+        warm = dataclasses.replace(
+            sp_cfg, max_moves=1,
+            mcts=dataclasses.replace(kleaf, n_simulations=8))
+        play_games(env, warm, tower_eval, packed, gen, dev)
+
+    with Phase(f"17b k-leaf main path: play_games batch {BATCH}, 6x128 int8 "
+               f"tower, {BOARD}x{BOARD}, PUCT@{SIMS} k={KLEAF} ({macro} "
+               f"network calls of {KLEAF * BATCH} boards a move), {MOVES} "
+               f"moves"):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        traj = play_games(env, sp_cfg, tower_eval, packed, gen, dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()
+        moves_done = int(torch.clamp(traj.moves_played, max=MOVES).sum())
+        log(f"k-leaf main path: {moves_done} moves in {seconds:.3f} s = "
+            f"{moves_done / seconds:.2f} moves/s (batch {BATCH}, 6x128 int8 "
+            f"tower, PUCT@{SIMS} k={KLEAF}, {BOARD}x{BOARD}) on {smi}; "
+            f"k=1 in this run: {int8_rate:.2f} moves/s")
+        expect_launches("k-leaf int8 PUCT main path", launches, {
+            "select_walk": MOVES * SIMS, "backup_paths_vl": MOVES * SIMS,
+            "backup_paths_finalize": MOVES * SIMS,
+            "int8_tower": MOVES * (1 + macro)})
+        for name in ("backup_paths_vl", "backup_paths_finalize"):
+            rows[name]["launches"] = launches[name]
+        for name, n in launches.items():
+            rows[name]["launches_by_path"]["int8t_puct400_kleaf4"] = n
+        check_trajectories(env, traj, MOVES)
+
+    sp_cfg = SelfPlayConfig(batch_games=BATCH, mcts=gumbel, max_moves=MOVES)
+    gen = phase_gen(args.seed, 18, dev)
+    with Phase(f"18a reuse main path warm-up (batch {BATCH}, 1 move)"):
+        play_games(env, dataclasses.replace(sp_cfg, max_moves=1), fused_eval,
+                   folded, gen, dev)
+
+    with Phase(f"18b reuse main path: play_games batch {BATCH}, 6x128 fused "
+               f"bf16, {BOARD}x{BOARD}, Gumbel@{GUMBEL_SIMS} m={GUMBEL_M}, "
+               f"reuse budget {REUSE_BUDGET}, {MOVES} moves"):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        traj = play_games(env, sp_cfg, fused_eval, folded, gen, dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()
+        moves_done = int(torch.clamp(traj.moves_played, max=MOVES).sum())
+        log(f"reuse main path: {moves_done} moves in {seconds:.3f} s = "
+            f"{moves_done / seconds:.2f} moves/s (batch {BATCH}, 6x128 fused "
+            f"bf16, Gumbel@{GUMBEL_SIMS} m={GUMBEL_M}, reuse "
+            f"{REUSE_BUDGET}, {BOARD}x{BOARD}) on {smi}")
+        expect_launches("Gumbel reuse main path", launches, {
+            "gumbel_select_walk": MOVES * GUMBEL_SIMS,
+            "backup_paths": MOVES * GUMBEL_SIMS,
+            "fused_tower": MOVES * (1 + GUMBEL_SIMS)})
+        for name, n in launches.items():
+            rows[name]["launches_by_path"]["gumbel64_reuse48"] = n
+        check_trajectories(env, traj, MOVES)
+        log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+            f" GiB")
+
+
+def reuse_trace(env, cfg, eval_fn, bundle, states, moves, generator, ops):
+    """``REUSE_MOVES`` searches with reuse, each followed by
+    ``packed_advance_root`` with the greedy (PUCT) or halving (Gumbel) move:
+    every output and every carry field, in order."""
+    carry = init_packed_carry(env, cfg, states)
+    out = []
+    for _ in range(REUSE_MOVES):
+        if cfg.search == "gumbel":
+            pi, q, act, carry = run_gumbel_packed_with_tree(
+                env, cfg, eval_fn, bundle, states, generator, ops=ops,
+                carry=carry)
+        else:
+            pi, q, carry = run_mcts_packed_with_tree(
+                env, cfg, eval_fn, bundle, states, moves, generator, ops=ops,
+                carry=carry)
+            act = pi.argmax(dim=1)
+        act = torch.where(states.done, 0, act)
+        out += [pi, q, act, carry.packed, *carry.states, carry.parent,
+                carry.parent_action]
+        carry = packed_advance_root(env, cfg, carry, act)
+        out += [carry.packed, *carry.states, carry.parent,
+                carry.parent_action]
+        states = env.step_safe(states, act)
+        moves = moves + 1
+    return out
 
 
 def fused_tower_f64(folded, obs: torch.Tensor) -> torch.Tensor:

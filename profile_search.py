@@ -8,8 +8,12 @@ plies in, at batch 256, 15x15, with the 6x128 net of
 ``chip_smoke.smoke_weights`` from seed 0: PUCT
 (``chip_smoke.MAIN_MCTS``) for ``SIMS`` simulations in a tree sized for 400,
 on the float32 ``ResNet`` with TF32 off and on the int8 tower kernel (the
-net quantized on ``random_calib_obs`` boards), and one whole Gumbel@64
-search (``chip_smoke.GUMBEL_MCTS``, the fused bf16 tower).  Each runs once
+net quantized on ``random_calib_obs`` boards); k-leaf PUCT on the int8
+tower (``leaves_per_sim=4``, ``chip_smoke.KLEAF``), one whole 400-simulation
+search of 100 macro steps; and one whole Gumbel@64 search
+(``chip_smoke.GUMBEL_MCTS``, the fused bf16 tower).  It also times
+``packed_advance_root`` on the tree of a Gumbel@64 search with reuse budget
+``chip_smoke.REUSE_BUDGET`` (host wall per move, synchronized).  Each runs once
 to warm up, once untraced and once under ``torch.profiler``, and prints:
 
   - host wall time per simulation (``time.perf_counter`` around work that
@@ -50,12 +54,19 @@ from alphazero_gomoku_tpu_torch.ops import fused_net as fn
 from alphazero_gomoku_tpu_torch.ops import int8_net as q8
 from alphazero_gomoku_tpu_torch.ops import int8_tower as t8
 from alphazero_gomoku_tpu_torch.search.gumbel import run_gumbel_mcts
-from alphazero_gomoku_tpu_torch.search.tree_packed import run_mcts_packed
+from alphazero_gomoku_tpu_torch.search.tree_packed import (
+    init_packed_carry,
+    packed_advance_root,
+    run_gumbel_packed_with_tree,
+    run_mcts_packed,
+)
 from chip_smoke import (
     BATCH,
     BOARD,
     GUMBEL_MCTS,
+    KLEAF,
     MAIN_MCTS,
+    REUSE_BUDGET,
     nvidia_smi,
     random_states,
     smoke_weights,
@@ -229,14 +240,42 @@ def main() -> int:
                         states, moves, gen)
         torch.cuda.synchronize()
 
+    kleaf = dataclasses.replace(MAIN_MCTS, leaves_per_sim=KLEAF)
+
+    def puct_int8_kleaf():
+        run_mcts_packed(env, kleaf, _ranged(NETWORK, tower_eval), packed,
+                        states, moves, gen)
+        torch.cuda.synchronize()
+
     profile_search(f"PUCT@{MAIN_MCTS.n_simulations}", puct, SIMS,
                    {"tree": TREE_KERNELS})
     profile_search(f"PUCT@{MAIN_MCTS.n_simulations} int8 tower", puct_int8,
                    SIMS, {"tree": TREE_KERNELS,
                           "int8 tower": INT8_TOWER_KERNELS})
+    profile_search(f"PUCT@{kleaf.n_simulations} k={KLEAF} int8 tower",
+                   puct_int8_kleaf, kleaf.n_simulations,
+                   {"tree": TREE_KERNELS, "int8 tower": INT8_TOWER_KERNELS})
     profile_search(f"Gumbel@{GUMBEL_MCTS.n_simulations}", gumbel,
                    GUMBEL_MCTS.n_simulations,
                    {"tree": TREE_KERNELS, "fused tower": TOWER_KERNELS})
+
+    # subtree reuse's move-loop cost: packed_advance_root on the tree of a
+    # Gumbel@64 search with the shipped nets' reuse budget
+    reuse = dataclasses.replace(GUMBEL_MCTS, reuse_budget=REUSE_BUDGET)
+    _, _, action, carry = run_gumbel_packed_with_tree(
+        env, reuse, fused_eval, folded, states, gen,
+        carry=init_packed_carry(env, reuse, states))
+    for _ in range(2):
+        packed_advance_root(env, reuse, carry, action)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        packed_advance_root(env, reuse, carry, action)
+    torch.cuda.synchronize()
+    print(f"packed_advance_root (Gumbel@{reuse.n_simulations}, reuse budget "
+          f"{REUSE_BUDGET}, {reuse.node_capacity} nodes, batch {BATCH}): "
+          f"{(time.perf_counter() - t0) / 10 * 1e3:.3f} ms per move (host "
+          f"wall, synchronized)", flush=True)
 
     obs = env.encode(states)
     flops = tower_flops(cfg, BATCH)

@@ -8,6 +8,8 @@ it runs without the repo's conftest (which imports JAX):
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -27,6 +29,7 @@ from alphazero_gomoku_tpu_torch.search.gumbel import (
     halving_schedule,
     run_gumbel_mcts,
 )
+from alphazero_gomoku_tpu_torch.search import tree_packed as tp
 from alphazero_gomoku_tpu_torch.search.tree_packed import (
     run_gumbel_packed_with_tree,
     run_mcts_packed,
@@ -68,9 +71,9 @@ def _grown_tree(dev, size=15, batch=64, sims=48, capacity=402, depth=56,
     states = _random_states(env, batch, plies, 1, dev)
     moves = torch.full((batch,), plies, dtype=torch.int32, device=dev)
     g = torch.Generator(device=dev).manual_seed(2)
-    _, _, packed = run_mcts_packed_with_tree(env, mcfg, make_eval_fn(), net,
-                                             states, moves, g)
-    return mcfg, tk.packed_layout(size * size, capacity), packed
+    _, _, tree = run_mcts_packed_with_tree(env, mcfg, make_eval_fn(), net,
+                                           states, moves, g)
+    return mcfg, tk.packed_layout(size * size, capacity), tree.packed
 
 
 @pytest.mark.parametrize("fpu", ["zero", "parent"])
@@ -150,9 +153,10 @@ def _gumbel_tree(dev, size=15, batch=64, sims=48, m=16):
                       gumbel_max_considered=m, add_noise=False, max_depth=56)
     states = _random_states(env, batch, 6, 1, dev)
     g = torch.Generator(device=dev).manual_seed(2)
-    *_, packed = run_gumbel_packed_with_tree(
+    *_, tree = run_gumbel_packed_with_tree(
         env, mcfg, fn.make_fused_eval_fn(cfg), folded, states, g)
-    return env, mcfg, tk.packed_layout(size * size, mcfg.node_capacity), packed
+    return (env, mcfg, tk.packed_layout(size * size, mcfg.node_capacity),
+            tree.packed)
 
 
 @pytest.mark.parametrize("fan", [1, 16])
@@ -295,3 +299,128 @@ def test_int8_tower_wrapper_refuses_bad_cuda_inputs():
     bad = dict(packed, block_w=packed["block_w"].float())
     with pytest.raises(TypeError):
         t8.int8_tower(bad, obs)
+
+
+# (board, batch, k): a small board, a batch that is not a multiple of
+# anything, and the k-leaf path's shape
+@pytest.mark.parametrize("size,batch,k", [(9, 11, 2), (15, 40, 4),
+                                          (15, 256, 4)])
+def test_backup_vl_and_finalize_kernels_equal_plain(size, batch, k):
+    """k "vl" passes, then their k "finalize" passes, on a tree grown by a
+    k-leaf search: after each, the kernel's whole tree equals the plain
+    version's."""
+    dev = _card()
+    sims = 32
+    env = make_env("gomoku", size)
+    cfg = NetConfig(board_size=size, action_size=size * size,
+                    n_res_blocks=2, channels=32)
+    net = bundle_of(cfg, *init_params(cfg, 0), device=dev)
+    mcfg = MCTSConfig(n_simulations=sims, max_nodes=sims + 2 + k,
+                      max_depth=56, leaves_per_sim=k, add_noise=False)
+    states = _random_states(env, batch, 6, 1, dev)
+    moves = torch.full((batch,), 6, dtype=torch.int32, device=dev)
+    _, _, tree = run_mcts_packed_with_tree(env, mcfg, make_eval_fn(), net,
+                                           states, moves)
+    packed = tree.packed
+    layout = tk.packed_layout(size * size, mcfg.node_capacity)
+    g = torch.Generator(device=dev).manual_seed(size + k)
+    a = size * size
+    tk.reset_launch_counts()
+    passes = []
+    for j in range(k):
+        _, action, pnodes, pacts, plen = tk.select_walk(
+            packed, layout, 1.0, mcfg.depth_limit)
+        done = torch.rand(batch, generator=g, device=dev) < 0.2
+        legal = torch.rand((batch, a), generator=g, device=dev) < 0.8
+        placeholder = torch.where(legal, 1.0 / a, -1.0)
+        inputs = (pnodes, pacts, plen)
+        rest = (action >= 0, sims + 1 + j, layout)
+        zeros = torch.zeros(batch, device=dev)
+        want = tk.backup_paths_plain(packed.clone(), *inputs, zeros, *rest,
+                                     placeholder, done, mode="vl")
+        tk.backup_paths(packed, *inputs, zeros, *rest, placeholder, done,
+                        mode="vl")
+        torch.cuda.synchronize()
+        assert torch.equal(packed, want), f"vl {j}"
+        passes.append((inputs, rest, done))
+    for inputs, rest, done in passes:
+        values = torch.rand(batch, generator=g, device=dev) * 2 - 1
+        priors = torch.rand((batch, a), generator=g, device=dev)
+        want = tk.backup_paths_plain(packed.clone(), *inputs, values, *rest,
+                                     priors, done, mode="finalize")
+        tk.backup_paths(packed, *inputs, values, *rest, priors, done,
+                        mode="finalize")
+        torch.cuda.synchronize()
+        assert torch.equal(packed, want), "finalize"
+    assert tk.backup_paths.mode_launches == {"backup": 0, "vl": k,
+                                             "finalize": k}
+    assert tk.backup_paths.launches == 2 * k
+
+
+def test_kleaf_and_reuse_searches_kernels_equal_plain():
+    """A k-leaf PUCT search, and PUCT and Gumbel searches with reuse over
+    two moves, on the kernels equal the same searches on the plain
+    versions: pi, root_q, actions and every field of the carry."""
+    dev = _card()
+    size, batch = 15, 16
+    env = make_env("gomoku", size)
+    cfg = NetConfig(board_size=size, action_size=size * size,
+                    n_res_blocks=2, channels=32)
+    net = bundle_of(cfg, *init_params(cfg, 0), device=dev)
+    states = _random_states(env, batch, 4, 5, dev)
+    moves = torch.full((batch,), 4, dtype=torch.int32, device=dev)
+    kleaf = MCTSConfig(n_simulations=24, leaves_per_sim=4, max_depth=56,
+                       dirichlet_alpha=0.05, dirichlet_epsilon=0.15)
+    outs = []
+    for ops in (tk.KERNELS, tk.PLAIN):
+        tk.reset_launch_counts()
+        g = torch.Generator(device=dev).manual_seed(7)
+        pi, q, tree = run_mcts_packed_with_tree(env, kleaf, make_eval_fn(),
+                                                net, states, moves, g,
+                                                ops=ops)
+        outs.append((pi, q, tree.packed))
+        if ops is tk.KERNELS:
+            assert tk.select_walk.launches == 24
+            assert tk.backup_paths.mode_launches == {
+                "backup": 0, "vl": 24, "finalize": 24}
+    for x, y in zip(*outs):
+        assert torch.equal(x, y)
+
+    # the fused tower's kernel takes 64 or 128 channels
+    cfg64 = dataclasses.replace(cfg, channels=64)
+    folded = fn.fold_bn(cfg64, *init_params(cfg64, 0), device=dev)
+    for search in ("puct", "gumbel"):
+        if search == "puct":
+            mcfg = MCTSConfig(n_simulations=24, reuse_budget=16,
+                              max_depth=56, add_noise=False)
+        else:
+            mcfg = MCTSConfig(n_simulations=24, search="gumbel",
+                              gumbel_max_considered=8, add_noise=False,
+                              max_depth=56, reuse_budget=16)
+        carries = []
+        for ops in (tk.KERNELS, tk.PLAIN):
+            g = torch.Generator(device=dev).manual_seed(9)
+            st = states
+            carry = tp.init_packed_carry(env, mcfg, st)
+            trace = []
+            for _ in range(2):
+                if search == "puct":
+                    pi, q, carry = run_mcts_packed_with_tree(
+                        env, mcfg, make_eval_fn(), net, st, moves, g,
+                        ops=ops, carry=carry)
+                    act = pi.argmax(dim=1)
+                else:
+                    pi, q, act, carry = run_gumbel_packed_with_tree(
+                        env, mcfg, fn.make_fused_eval_fn(cfg64), folded, st, g,
+                        ops=ops, carry=carry)
+                trace += [pi, q, act, *_carry_tensors(carry)]
+                carry = tp.packed_advance_root(env, mcfg, carry, act)
+                trace += _carry_tensors(carry)
+                st = env.step_safe(st, act)
+            carries.append(trace)
+        for x, y in zip(*carries):
+            assert torch.equal(x, y), search
+
+
+def _carry_tensors(carry):
+    return [carry.packed, *carry.states, carry.parent, carry.parent_action]

@@ -99,8 +99,9 @@ def searched(request):
         jenv, JaxMCTSConfig(backend="pallas", **kw), te.jax, None, key,
         root_states=s, interpret=True))(js)
     u = torch.from_numpy(np.array(_uniforms(key, BATCH)))
-    tout = run_gumbel_packed_with_tree(env, MCTSConfig(**kw), te.torch, None,
-                                       to_torch_state(js), uniforms=u)
+    *tout, tree = run_gumbel_packed_with_tree(
+        env, MCTSConfig(**kw), te.torch, None, to_torch_state(js), uniforms=u)
+    tout.append(tree.packed)
     return dict(cfg=MCTSConfig(**kw), env=env, te=te, states=js, u=u,
                 jax=[np.array(x) for x in jout[:3]] + [
                     np.array(jout[3].packed)],
@@ -127,10 +128,10 @@ def test_round_parallel_equals_serial(searched):
     cfg = searched["cfg"]
     flip = dataclasses.replace(
         cfg, gumbel_round_parallel=not cfg.gumbel_round_parallel)
-    other = run_gumbel_packed_with_tree(
+    *other, tree = run_gumbel_packed_with_tree(
         searched["env"], flip, searched["te"].torch, None,
         to_torch_state(searched["states"]), uniforms=searched["u"])
-    for x, y in zip(searched["torch"], other):
+    for x, y in zip(searched["torch"], other + [tree.packed]):
         assert torch.equal(x, y)
 
 
@@ -269,14 +270,6 @@ def test_run_mcts_with_q_dispatches_gumbel():
 def test_gumbel_config_checks(kw, err):
     with pytest.raises(err):
         MCTSConfig(n_simulations=16, **kw)
-
-
-def test_gumbel_reuse_carry_not_ported_raises():
-    env = GomokuEnv(SIZE)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        run_gumbel_packed_with_tree(
-            env, MCTSConfig(**_kw(8, 4)), TableEval(SIZE).torch, None,
-            env.init_batch(2, device="cpu"), torch.Generator(), carry=object())
 
 
 def test_exp_and_log_f32_are_within_two_ulp():

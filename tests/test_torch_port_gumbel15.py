@@ -82,6 +82,7 @@ def test_gumbel64_at_15x15_matches_jax(plies, batch, seed, parallel):
         env, MCTSConfig(**kw), eval_fn, net, to_torch_state(states),
         uniforms=torch.from_numpy(np.array(u)))
     np.testing.assert_array_equal(np.asarray(aj), at.numpy())
-    np.testing.assert_array_equal(np.asarray(jtree.packed), tree.numpy())
+    np.testing.assert_array_equal(np.asarray(jtree.packed),
+                                  tree.packed.numpy())
     np.testing.assert_allclose(pt.numpy(), np.asarray(pj), rtol=0, atol=TOL)
     np.testing.assert_allclose(qt.numpy(), np.asarray(qj), rtol=0, atol=TOL)

@@ -68,9 +68,9 @@ def trees(request):
     _, _, carry = jax.jit(lambda s: jax_search_with_tree(
         jenv, jcfg, te.jax, None, jnp.asarray(moves), jax.random.PRNGKey(0),
         root_states=s, interpret=True))(js)
-    _, _, packed = run_mcts_packed_with_tree(
+    _, _, tree = run_mcts_packed_with_tree(
         env, cfg, te.torch, None, to_torch_state(js), torch.from_numpy(moves))
-    return cfg, np.asarray(carry.packed), packed
+    return cfg, np.asarray(carry.packed), tree.packed
 
 
 def test_searched_trees_are_equal(trees):
@@ -133,14 +133,6 @@ def _small_inputs(b=2, n_nodes=6, depth=4):
         expanding=torch.ones(b, dtype=torch.bool), slot=1, layout=lay,
         signed_priors=torch.zeros((b, A)),
         done=torch.zeros(b, dtype=torch.bool))
-
-
-def test_backup_modes_not_ported_raise():
-    for mode in ("vl", "finalize"):
-        with pytest.raises(NotImplementedError, match="Queue A item 11"):
-            tk.backup_paths(**_small_inputs(), mode=mode)
-    with pytest.raises(ValueError, match="unknown backup mode"):
-        tk.backup_paths(**_small_inputs(), mode="other")
 
 
 @pytest.mark.parametrize("field,bad", [

@@ -99,14 +99,139 @@ def test_search_without_noise_tensor_draws_from_the_generator():
         run_mcts_packed(env, cfg, te.torch, None, states, moves)
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(search="gumbel", reuse_budget=8), "item 11"),
-    (dict(leaves_per_sim=2), "item 11"),
-    (dict(reuse_budget=8), "item 11"),
-])
-def test_searches_not_ported_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        MCTSConfig(n_simulations=8, **kw)
+def _refusal_cases():
+    """name -> (the port's call, the JAX package's call): each must raise
+    ValueError in both."""
+    from alphazero_gomoku_tpu.ops import tree_kernels as jtk
+    from alphazero_gomoku_tpu.search import tree_pallas as jtp
+    from alphazero_gomoku_tpu.selfplay import runner as jrunner
+    from alphazero_gomoku_tpu_torch.ops import tree_kernels as tk
+    from alphazero_gomoku_tpu_torch.search import tree_packed as tp
+    from alphazero_gomoku_tpu_torch.selfplay import runner
+
+    jenv, env = JaxEnv(5), GomokuEnv(5)
+    te = TableEval(5)
+
+    def both(**kw):
+        return (lambda: MCTSConfig(**kw),
+                lambda: JaxMCTSConfig(backend="pallas", **kw))
+
+    def puct(kw, carry):
+        def port():
+            cfg = MCTSConfig(**kw)
+            states = env.init_batch(2, device="cpu")
+            tp.run_mcts_packed_with_tree(
+                env, cfg, te.torch, None, states,
+                torch.zeros(2, dtype=torch.int32),
+                carry=(tp._fresh_carry(env, cfg, states) if carry else None))
+
+        def jax_side():
+            cfg = JaxMCTSConfig(backend="pallas", **kw)
+            states = jenv.init_batch(2)
+            jtp.run_mcts_packed_with_tree(
+                jenv, cfg, te.jax, None, jnp.zeros(2, jnp.int32),
+                jax.random.PRNGKey(0), root_states=states,
+                carry=(jtp._init_packed(2, jtp.packed_layout(
+                    25, cfg.node_capacity)) if carry else None))
+        return port, jax_side
+
+    def gumbel_carry():
+        kw = dict(n_simulations=8, search="gumbel", gumbel_max_considered=4)
+        states = env.init_batch(2, device="cpu")
+        cfg = MCTSConfig(**kw)
+        return (lambda: tp.run_gumbel_packed_with_tree(
+                    env, cfg, te.torch, None, states,
+                    torch.Generator(), carry=tp._fresh_carry(env, cfg,
+                                                              states)),
+                lambda: jtp.run_gumbel_packed_with_tree(
+                    jenv, JaxMCTSConfig(backend="pallas", **kw), te.jax, None,
+                    jax.random.PRNGKey(0), carry=object(),
+                    root_states=jenv.init_batch(2)))
+
+    def selfplay(batch, **kw):
+        mcts = dict(n_simulations=8, **kw.pop("mcts", {}))
+        return (lambda: runner.play_games(
+                    env, runner.SelfPlayConfig(batch, MCTSConfig(**mcts),
+                                               **kw),
+                    te.torch, None, torch.Generator(), device="cpu"),
+                lambda: jrunner.play_games(
+                    jenv, jrunner.SelfPlayConfig(
+                        batch, JaxMCTSConfig(backend="pallas", **mcts), **kw),
+                    te.jax, None, jax.random.PRNGKey(0)))
+
+    def advance_without_reuse():
+        cfg = dict(n_simulations=8)
+        return (lambda: tp.packed_advance_root(
+                    env, MCTSConfig(**cfg), None, torch.zeros(2)),
+                lambda: jtp.packed_advance_root(
+                    jenv, JaxMCTSConfig(**cfg), None, jnp.zeros(2)))
+
+    def unknown_backup_mode():
+        lay, jlay = tk.packed_layout(25, 4), jtk.packed_layout(25, 4)
+        i32 = dict(dtype=torch.int32)
+        return (lambda: tk.backup_paths(
+                    tk.init_packed(8, lay, "cpu"), torch.zeros((2, 8), **i32),
+                    torch.zeros((2, 8), **i32), torch.ones(8, **i32),
+                    torch.zeros(8), torch.ones(8, dtype=torch.bool), 1, lay,
+                    torch.zeros((8, 25)), torch.zeros(8, dtype=torch.bool),
+                    mode="other"),
+                lambda: jtk.backup_paths(
+                    jnp.zeros((8, 32, 128)), jnp.zeros((2, 8), jnp.int32),
+                    jnp.zeros((2, 8), jnp.int32), jnp.ones(8, jnp.int32),
+                    jnp.zeros(8), jnp.ones(8, jnp.int32), jnp.int32(1), jlay,
+                    signed_priors=jnp.zeros((8, 25)),
+                    done=jnp.zeros(8, bool), interpret=True, mode="other"))
+
+    return {
+        "reuse_with_kleaf": puct(dict(n_simulations=8, leaves_per_sim=2,
+                                      reuse_budget=4), carry=False),
+        "gumbel_with_kleaf": both(n_simulations=8, search="gumbel",
+                                  leaves_per_sim=2),
+        "sims_not_divisible_by_k": both(n_simulations=10, leaves_per_sim=4),
+        "k_below_1": both(n_simulations=8, leaves_per_sim=0),
+        "carry_without_reuse": puct(dict(n_simulations=8), carry=True),
+        "gumbel_carry_without_reuse": gumbel_carry(),
+        "capacity_below_sims_2_reuse": (
+            lambda: MCTSConfig(n_simulations=8, reuse_budget=4,
+                               max_nodes=12).node_capacity,
+            lambda: JaxMCTSConfig(n_simulations=8, reuse_budget=4,
+                                  max_nodes=12).node_capacity),
+        "selfplay_reuse_below_8_games": selfplay(
+            4, mcts=dict(reuse_budget=4)),
+        "pcr_with_kleaf": selfplay(2, mcts=dict(leaves_per_sim=2),
+                                   pcr_cheap_sims=4),
+        "pcr_cheap_sims_not_below_sims": selfplay(2, pcr_cheap_sims=8),
+        "advance_root_without_reuse": advance_without_reuse(),
+        "unknown_backup_mode": unknown_backup_mode(),
+    }
+
+
+# case -> a phrase both packages' messages hold
+REFUSALS = {
+    "reuse_with_kleaf": "reuse is not supported with leaves_per_sim",
+    "gumbel_with_kleaf": "does not support leaves_per_sim",
+    "sims_not_divisible_by_k": "not divisible by leaves_per_sim",
+    "k_below_1": "leaves_per_sim=0 < 1",
+    "carry_without_reuse": "carry= requires",
+    "gumbel_carry_without_reuse": "carry= requires",
+    "capacity_below_sims_2_reuse": "n_simulations\\+2\\+reuse_budget",
+    "selfplay_reuse_below_8_games": "batch_games >= 8",
+    "pcr_with_kleaf": "playout cap randomization is not supported",
+    "pcr_cheap_sims_not_below_sims": "must be below",
+    "advance_root_without_reuse": "requires cfg.reuse_budget > 0",
+    "unknown_backup_mode": "unknown backup mode",
+}
+
+
+@pytest.mark.parametrize("case", list(REFUSALS))
+def test_refusals_shared_with_jax(case):
+    """What the JAX package refuses in k-leaf search, reuse, PCR and the
+    backup modes, the port refuses too, with a ValueError."""
+    port, jax_side = _refusal_cases()[case]
+    with pytest.raises(ValueError, match=REFUSALS[case]):
+        jax_side()
+    with pytest.raises(ValueError, match=REFUSALS[case]):
+        port()
 
 
 @pytest.mark.parametrize("alpha", [0.03, 0.3, 1.0])

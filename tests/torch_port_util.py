@@ -115,3 +115,30 @@ class TableEval:
         idx = torch.remainder(f, self.k).long()
         return (torch.from_numpy(self.probs).to(obs.device)[idx],
                 torch.from_numpy(self.values).to(obs.device)[idx])
+
+
+def carry_to_numpy(carry):
+    """A ``PackedCarry`` of either package as numpy arrays
+    ``(packed, states, parent, parent_action)``, boards flat ``[B, n, H*W]``
+    as the JAX package stores them."""
+    packed, states, parent, pact = carry
+    fields = [np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x)
+              for x in states]
+    board = fields[0]
+    fields[0] = board.reshape(board.shape[:2] + (-1,))
+    return (np.asarray(packed.cpu() if isinstance(packed, torch.Tensor)
+                       else packed), fields,
+            *(np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x)
+              for x in (parent, pact)))
+
+
+def assert_carry_equal(jcarry, carry, msg=""):
+    """Every field of a JAX ``PackedCarry`` equals the port's, all lanes."""
+    jp, js, jpar, jpact = carry_to_numpy(jcarry)
+    tp, ts, tpar, tpact = carry_to_numpy(carry)
+    np.testing.assert_array_equal(jp, tp, err_msg=f"packed {msg}")
+    for name, x, y in zip(TorchState._fields, js, ts):
+        np.testing.assert_array_equal(x, y, err_msg=f"states.{name} {msg}")
+    np.testing.assert_array_equal(jpar, tpar, err_msg=f"parent {msg}")
+    np.testing.assert_array_equal(jpact, tpact,
+                                  err_msg=f"parent_action {msg}")
