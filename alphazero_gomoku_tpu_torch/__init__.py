@@ -21,6 +21,11 @@ float32 net or the int8 tower, and Gumbel@64 on the fused bf16 tower, config
                    versions, BN folding, int8 quantization, and the ``nvcc``
                    build.
   - ``selfplay`` : the lockstep self-play loop.
+  - ``tools``    : the tensor-core rate probe (``csrc/matmul_rate.cu``), the
+                   counterpart of the JAX repo's ``tools/mosaic_matmul_rate.py``.
+  - ``repro``    : the width-1 slice write through a scratch
+                   (``csrc/width1_slice.cu``), the counterpart of
+                   ``repro/mosaic_width1_slice_hang.py``.
 
 Entry points take ``device=None``, which means the CUDA card; with no card
 they raise.  Tests pass ``device="cpu"``, where every kernel wrapper runs its

@@ -11,7 +11,9 @@ with a plain C interface:
 ``SOURCE_FLAGS`` adds flags per source: the tree kernels and the int8
 tower build with ``--fmad=false``, so that no multiply and add are
 contracted into an FMA and they round as their plain versions do; the bf16
-tower builds without it.  No PyTorch headers are included, so a build takes seconds.
+tower, the rate probe (only tensor-core sums) and the slice write (its one
+multiply and add rounded apart by intrinsics) build without it.  No PyTorch
+headers are included, so a build takes seconds.
 :func:`build_all` starts one ``nvcc`` per source at once.  The library name
 carries a hash of the source and the flags, so an edit rebuilds.  Paths are
 resolved from this file, not from the working directory.
@@ -42,6 +44,8 @@ SOURCE_FLAGS = {
     "tree_kernels": ("--fmad=false",),
     "fused_net": (),
     "int8_tower": ("--fmad=false",),
+    "matmul_rate": (),
+    "width1_slice": (),
 }
 
 

@@ -27,13 +27,19 @@ weights made from ``--seed`` (their BN stats fitted to random boards,
   - Gumbel@64 with subtree reuse (``reuse_budget=48``, the shipped nets'
     self-play recipe, ``TRAINING_GUIDE.md:139``) on the fused bf16 tower,
     8 moves: kernels ``gumbel_select_walk``, ``backup_paths`` and
-    ``fused_tower``.
+    ``fused_tower``;
+  - the tensor-core rate probe (``tools/matmul_rate.py``'s ``measure``, the
+    entry point's work: every mode at M 2040 and 57600, k 128 and 1152):
+    kernel ``matmul_rate`` in its int8 and bf16 forms, counted apart;
+  - the width-1 slice-write repro (``repro/width1_slice_write.py``'s
+    ``main``, both variants): kernel ``width1_slice_write``.
 
 Each path's launch counts are set to 0 just before it and read just after;
 every kernel a path does not name must launch 0 times on it.  The k-leaf
 search and the reuse searches (with ``packed_advance_root`` between moves)
 are also held, on the kernels, against the same searches on the plain
-versions.
+versions.  The towers' rates (K5, K4) are printed over the probe's
+``mma.sync`` rate at their own GEMM shape (M 57600, k 128).
 Every phase prints its seconds.  Nothing is caught: a failed phase exits
 non-zero.  Without a CUDA card it exits 1 before any result.  The last lines
 are the card's ``nvidia-smi`` name and power limit, a JSON line with each
@@ -65,6 +71,7 @@ from alphazero_gomoku_tpu_torch.ops import fused_net as fn
 from alphazero_gomoku_tpu_torch.ops import int8_net as q8
 from alphazero_gomoku_tpu_torch.ops import int8_tower as t8
 from alphazero_gomoku_tpu_torch.ops import tree_kernels as tk
+from alphazero_gomoku_tpu_torch.repro import width1_slice_write as ws
 from alphazero_gomoku_tpu_torch.search import (
     MCTSConfig,
     init_packed_carry,
@@ -80,6 +87,7 @@ from alphazero_gomoku_tpu_torch.search.tree_packed import (
     run_mcts_packed_with_tree,
 )
 from alphazero_gomoku_tpu_torch.selfplay import SelfPlayConfig, play_games
+from alphazero_gomoku_tpu_torch.tools import matmul_rate as mr
 
 BOARD = 15
 BATCH = 256
@@ -127,11 +135,12 @@ BF16_VS_F32_TOL = 0.05
 INT8_VS_F32 = {"logit_corr": 0.98, "value_corr": 0.98}
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, FP32 FLOP/s
-# (CUDA cores), dense bf16 FLOP/s (tensor cores)
+# (CUDA cores); the dense bf16 FLOP/s and int8 OP/s of its tensor cores are
+# the rate probe's
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
-BF16_FLOPS_PER_S = 989e12
-INT8_OPS_PER_S = 1979e12
+BF16_FLOPS_PER_S = mr.PEAK_TFLOPS["bf16"] * 1e12
+INT8_OPS_PER_S = mr.PEAK_TFLOPS["int8"] * 1e12
 
 KERNEL_ROWS = {
     "select_walk": dict(
@@ -157,6 +166,17 @@ KERNEL_ROWS = {
     "int8_tower": dict(
         source="alphazero_gomoku_tpu_torch/csrc/int8_tower.cu",
         replaces="alphazero_gomoku_tpu/ops/int8_tower.py:239"),
+    # the int8 and bf16 forms of one kernel, as of one pallas_call
+    # (pallas_rate's in_dtype), counted apart
+    "matmul_rate_int8": dict(
+        source="alphazero_gomoku_tpu_torch/csrc/matmul_rate.cu",
+        replaces="tools/mosaic_matmul_rate.py:35"),
+    "matmul_rate_bf16": dict(
+        source="alphazero_gomoku_tpu_torch/csrc/matmul_rate.cu",
+        replaces="tools/mosaic_matmul_rate.py:35"),
+    "width1_slice_write": dict(
+        source="alphazero_gomoku_tpu_torch/csrc/width1_slice.cu",
+        replaces="repro/mosaic_width1_slice_hang.py:31"),
 }
 
 
@@ -399,7 +419,8 @@ def main() -> int:
 
     with Phase("2 build (one nvcc per source, at once)"):
         for built in _build.build_all(["tree_kernels", "fused_net",
-                                       "int8_tower"]).values():
+                                       "int8_tower", "matmul_rate",
+                                       "width1_slice"]).values():
             how = "reused an earlier build" if built.reused else "built"
             log(f"{how}: {built.path.name}, nvcc {built.seconds:.2f} s")
             for line in built.ptxas:
@@ -549,6 +570,7 @@ def main() -> int:
                                          dev, rows, smi)
     extension_phases(args, env, net_cfg, weights, net, dev, rows, smi,
                      int8_bundle, int8_rate)
+    probe_phases(args, net_cfg, dev, rows, smi)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi())
@@ -562,10 +584,13 @@ def reset_launch_counts():
     tk.reset_launch_counts()
     fn.reset_launch_counts()
     t8.reset_launch_counts()
+    mr.reset_launch_counts()
+    ws.reset_launch_counts()
 
 
 def launch_counts():
-    """Each row's launches: ``backup_paths`` counts its modes apart."""
+    """Each row's launches: ``backup_paths`` counts its modes apart,
+    ``matmul_rate`` its dtypes."""
     modes = tk.backup_paths.mode_launches
     return {"select_walk": tk.select_walk.launches,
             "backup_paths": modes["backup"],
@@ -573,7 +598,10 @@ def launch_counts():
             "backup_paths_finalize": modes["finalize"],
             "gumbel_select_walk": tk.gumbel_select_walk.launches,
             "fused_tower": fn.fused_tower.launches,
-            "int8_tower": t8.int8_tower.launches}
+            "int8_tower": t8.int8_tower.launches,
+            "matmul_rate_int8": mr.matmul_rate.dtype_launches["int8"],
+            "matmul_rate_bf16": mr.matmul_rate.dtype_launches["bf16"],
+            "width1_slice_write": ws.width1_slice_write.launches}
 
 
 def expect_launches(path: str, got, want):
@@ -1098,6 +1126,155 @@ def extension_phases(args, env, net_cfg, weights, net, dev, rows, smi,
         check_trajectories(env, traj, MOVES)
         log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
             f" GiB")
+
+
+def probe_phases(args, net_cfg, dev, rows, smi):
+    """Phases 19-20: the rate probe and the slice-write repro, each kernel
+    against its plain version, then each entry point's work with the launch
+    counts read around it."""
+    with Phase(f"19a matmul_rate against its plain version (M "
+               f"{mr.ROW_COUNTS}, (k, reps) {mr.SHAPES}, 2 steps; int8 and "
+               f"integer bf16 tolerance 0, bf16 within "
+               f"{mr.BF16_REL_TOL} of sum |x*w|)"):
+        gen = phase_gen(args.seed, 19, dev)
+        errs = dict.fromkeys(("int8", "bf16_integer", "bf16",
+                              "bf16_share_of_tolerance"), 0.0)
+        for m in mr.ROW_COUNTS:
+            for k, reps in mr.SHAPES:
+                inputs = mr.make_inputs(m, k, reps, gen, dev)
+                xi, wi = inputs["int8"]
+                xb, wb = inputs["bf16"]
+                for label, x, w in (
+                        ("int8", xi, wi),
+                        ("bf16_integer", xi.to(torch.bfloat16),
+                         wi.to(torch.bfloat16))):
+                    err = max_abs_err([mr.matmul_rate(x, w, reps, 2)],
+                                      [mr.matmul_rate_plain(x, w, reps, 2)])
+                    errs[label] = max(errs[label], err)
+                    if not err == 0.0:
+                        raise AssertionError(f"matmul_rate {label} M {m} k "
+                                             f"{k}: max abs err {err} "
+                                             f"(tolerance 0)")
+                err = (mr.matmul_rate(xb, wb, reps, 2).double()
+                       - mr.matmul_rate_plain(xb, wb, reps, 2).double()).abs()
+                share = float((err / mr.bf16_bound(xb, wb, reps)).max())
+                if not share <= 1.0:
+                    raise AssertionError(f"matmul_rate bf16 M {m} k {k}: "
+                                         f"{share} of the tolerance")
+                errs["bf16"] = max(errs["bf16"], float(err.max()))
+                errs["bf16_share_of_tolerance"] = max(
+                    errs["bf16_share_of_tolerance"], share)
+                log(f"matmul_rate M {m} k {k} reps {reps}: int8 and integer "
+                    f"bf16 == plain (max abs err {errs['int8']}, "
+                    f"{errs['bf16_integer']}); bf16 max abs err "
+                    f"{float(err.max())}, {share} of the tolerance")
+        # the per-step times beside the rates, at the towers' GEMM shape
+        m, (k, reps) = mr.M_CARD, mr.SHAPES[0]
+        inputs = mr.make_inputs(m, k, reps, gen, dev)
+        step_ms = {}
+        for name, (x, w) in inputs.items():
+            eager_ms = cuda_ms(lambda x=x, w=w: mr.matmul_rate(x, w, reps, 1),
+                               reps=20)
+            plain_ms = cuda_ms(lambda x=x, w=w: mr.matmul_rate_plain(
+                x, w, reps, 1), reps=3, warmup=1)
+            step_ms[name] = (eager_ms, plain_ms)
+            log(f"matmul_rate {name} M {m} k {k} reps {reps}, one step: "
+                f"eager wrapper call {eager_ms:.4f} ms, plain {plain_ms:.4f} "
+                f"ms")
+        del inputs
+
+    with Phase(f"19b rate probe path: tools.matmul_rate.measure, "
+               f"{len(mr.ROW_COUNTS) * len(mr.SHAPES)} shapes x (kernel, "
+               f"library) x (int8, bf16), steps {mr.HI} and {mr.LO}"):
+        reset_launch_counts()
+        results = mr.measure(dev)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        shapes = len(mr.ROW_COUNTS) * len(mr.SHAPES)
+        expect_launches("rate probe path", launches, {
+            "matmul_rate_int8": mr.CALLS_PER_RATE * shapes,
+            "matmul_rate_bf16": mr.CALLS_PER_RATE * shapes})
+        for name in ("int8", "bf16"):
+            row = rows[f"matmul_rate_{name}"]
+            head = results[f"cuda_{name}_k{k}_m{m}"]
+            ops = 2.0 * m * k * mr.N * reps
+            nbytes = ((m + reps) * k + k * mr.N) * (1 if name == "int8" else 2)
+            nbytes += m * mr.N * 4
+            # one step of a call of HI steps: its bytes spread over them
+            bound_ms, bound_by = bound(nbytes / mr.HI, ops,
+                                       mr.PEAK_TFLOPS[name] * 1e12)
+            row.update(
+                launches=launches[f"matmul_rate_{name}"],
+                max_abs_err=errs[name], ms=head["ms_per_step"],
+                eager_ms=step_ms[name][0], plain_ms=step_ms[name][1],
+                bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=results[f"torch_{name}_k{k}_m{m}"]["ms_per_step"],
+                tflops={mode: r["tflops"] for mode, r in results.items()
+                        if f"_{name}_" in mode})
+        rows["matmul_rate_bf16"].update(
+            max_abs_err_integer_inputs=errs["bf16_integer"],
+            bf16_share_of_tolerance=errs["bf16_share_of_tolerance"])
+        for name, n in launches.items():
+            rows[name]["launches_by_path"]["matmul_rate"] = n
+        for name, tower in (("int8", "int8_tower"), ("bf16", "fused_tower")):
+            rate = tower_flops(net_cfg, BATCH) / rows[tower]["ms"] / 1e9
+            probe = results[f"cuda_{name}_k{k}_m{m}"]["tflops"]
+            library = results[f"torch_{name}_k{k}_m{m}"]["tflops"]
+            rows[f"matmul_rate_{name}"][f"{tower}_over_probe"] = rate / probe
+            log(f"{tower}: {rate:.2f} T/s in this run = {rate / probe:.4f} of "
+                f"the probe's {name} mma.sync rate {probe:.2f} T/s at M {m}, "
+                f"k {k}, reps {reps} (the library's {library:.2f} T/s) on "
+                f"{smi}")
+
+    b, g, r, c = ws.B, ws.G, ws.R, ws.C
+    with Phase(f"20a width1_slice_write against its plain version ([{b}, {g}, "
+               f"{r}] float32, column {c}, both variants, tolerance 0)"):
+        x = torch.randn((b, g, r), generator=phase_gen(args.seed, 20, dev),
+                        device=dev)
+        times, w1_err = {}, 0.0
+        for ok in (False, True):
+            got = ws.width1_slice_write(x, c, ok)
+            err = max_abs_err([got], [ws.width1_slice_write_plain(x, c, ok)])
+            w1_err = max(w1_err, err)
+            if not err == 0.0:
+                raise AssertionError(f"width1_slice_write ok={ok}: max abs err"
+                                     f" {err} (tolerance 0)")
+            if torch.equal(got, x):
+                raise AssertionError("width1_slice_write changed nothing")
+
+            def call(ok=ok):
+                return ws.width1_slice_write(x, c, ok)
+
+            times[ok] = (graph_ms(call, reps=50), cuda_ms(call, reps=50),
+                         cuda_ms(lambda ok=ok: ws.width1_slice_write_plain(
+                             x, c, ok), reps=20))
+            log(f"width1_slice_write {'ok' if ok else 'width-1'}: kernel == "
+                f"plain, tolerance 0; kernel {times[ok][0]:.4f} ms (CUDA "
+                f"graph replay; eager wrapper call {times[ok][1]:.4f} ms), "
+                f"plain {times[ok][2]:.4f} ms")
+
+    with Phase("20b slice-write repro path: repro.width1_slice_write.main, "
+               "both variants"):
+        reset_launch_counts()
+        for argv in ([], ["--ok"]):
+            ws.main(argv)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        expect_launches("slice-write repro path", launches,
+                        {"width1_slice_write": 2})
+        nbytes = 2 * b * g * r * 4
+        bound_ms, bound_by = bound(nbytes, 2 * b * g)
+        rows["width1_slice_write"].update(
+            launches=launches["width1_slice_write"], max_abs_err=w1_err,
+            ms=times[False][0], eager_ms=times[False][1],
+            plain_ms=times[False][2], bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None, ok_ms=times[True][0],
+            ok_plain_ms=times[True][2])
+        for name, n in launches.items():
+            rows[name]["launches_by_path"]["width1_repro"] = n
+        log(f"width1_slice_write: bound {bound_ms:.6f} ms ({bound_by}); no "
+            f"single PyTorch call computes the function, so library_ms is "
+            f"null")
 
 
 def reuse_trace(env, cfg, eval_fn, bundle, states, moves, generator, ops):

@@ -24,6 +24,7 @@ from alphazero_gomoku_tpu_torch.ops import fused_net as fn
 from alphazero_gomoku_tpu_torch.ops import int8_net as q8
 from alphazero_gomoku_tpu_torch.ops import int8_tower as t8
 from alphazero_gomoku_tpu_torch.ops import tree_kernels as tk
+from alphazero_gomoku_tpu_torch.repro import width1_slice_write as ws
 from alphazero_gomoku_tpu_torch.search import MCTSConfig
 from alphazero_gomoku_tpu_torch.search.gumbel import (
     halving_schedule,
@@ -35,6 +36,7 @@ from alphazero_gomoku_tpu_torch.search.tree_packed import (
     run_mcts_packed,
     run_mcts_packed_with_tree,
 )
+from alphazero_gomoku_tpu_torch.tools import matmul_rate as mr
 
 pytestmark = pytest.mark.cuda
 
@@ -424,3 +426,103 @@ def test_kleaf_and_reuse_searches_kernels_equal_plain():
 
 def _carry_tensors(carry):
     return [carry.packed, *carry.states, carry.parent, carry.parent_action]
+
+
+# the rate probe: row counts below a block, the JAX tool's and the towers';
+# depths of one mma (int8), the per-tap K and the im2col K; 1, 4 and 9 row
+# shifts
+@pytest.mark.parametrize("m", [17, 2040, 57600])
+@pytest.mark.parametrize("k", [32, 128, 1152])
+@pytest.mark.parametrize("reps", [1, 4, 9])
+def test_matmul_rate_kernel_equals_plain(m, k, reps):
+    """int8 and bf16 on integer values in [-3, 3] exactly (every float32
+    partial sum is an integer below 2^24), bf16 on normal values within
+    ``mr.BF16_REL_TOL`` of ``sum |x| @ |w|``; after 1 and 5 steps."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(m + k + reps)
+    inputs = mr.make_inputs(m, k, reps, g, dev)
+    xi, wi = inputs["int8"]
+    xb, wb = inputs["bf16"]
+    cases = [(xi, wi), (xi.to(torch.bfloat16), wi.to(torch.bfloat16))]
+    bound = mr.bf16_bound(xb, wb, reps)
+    for steps in (1, 5):
+        for x, w in cases:
+            got = mr.matmul_rate(x, w, reps, steps)
+            torch.cuda.synchronize()
+            assert torch.equal(got, mr.matmul_rate_plain(x, w, reps, 1))
+        got = mr.matmul_rate(xb, wb, reps, steps)
+        want = mr.matmul_rate_plain(xb, wb, reps, 1)
+        err = (got.double() - want.double()).abs()
+        assert (err <= bound).all(), float((err / bound).max())
+
+
+def test_matmul_rate_counts_launches_per_dtype():
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(0)
+    inputs = mr.make_inputs(300, 64, 3, g, dev)
+    mr.reset_launch_counts()
+    mr.matmul_rate(*inputs["int8"], 3, 2)
+    mr.matmul_rate(*inputs["bf16"], 3, 2)
+    mr.matmul_rate(*inputs["bf16"], 3, 1)
+    assert mr.matmul_rate.dtype_launches == {"int8": 1, "bf16": 2}
+    assert mr.matmul_rate.launches == 3
+
+
+def test_matmul_rate_wrapper_raises_on_bad_cuda_inputs():
+    dev = _card()
+    x = torch.zeros((140, 128), dtype=torch.int8, device=dev)
+    w = torch.zeros((128, 128), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        mr.matmul_rate(x.t().contiguous().t(), w, 9, 1)
+    with pytest.raises(TypeError):
+        mr.matmul_rate(x.float(), w.float(), 9, 1)
+    with pytest.raises(TypeError):
+        mr.matmul_rate(x, w.to(torch.bfloat16), 9, 1)
+    with pytest.raises(ValueError, match="multiple"):     # int8 depth 32
+        mr.matmul_rate(x[:, :48].contiguous(), w[:48].contiguous(), 9, 1)
+    with pytest.raises(ValueError, match="multiple"):     # bf16 depth 16
+        xb = torch.zeros((140, 24), dtype=torch.bfloat16, device=dev)
+        mr.matmul_rate(xb, torch.zeros((24, 128), dtype=torch.bfloat16,
+                                       device=dev), 9, 1)
+    with pytest.raises(ValueError, match="multiple"):     # N of 128
+        mr.matmul_rate(x, w[:, :64].contiguous(), 9, 1)
+    with pytest.raises(ValueError):
+        mr.matmul_rate(x, w.cpu(), 9, 1)
+
+
+@pytest.mark.parametrize("ok", [False, True], ids=["width1", "segment"])
+@pytest.mark.parametrize("shape,c", [((ws.B, ws.G, ws.R), ws.C),
+                                     ((3, 5, 256), 200)])
+def test_width1_slice_write_kernel_equals_plain(shape, c, ok):
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(shape, generator=g, device=dev)
+    ws.reset_launch_counts()
+    got = ws.width1_slice_write(x, c, ok)
+    torch.cuda.synchronize()
+    assert ws.width1_slice_write.launches == 1
+    assert torch.equal(got, ws.width1_slice_write_plain(x, c, ok))
+    assert not torch.equal(got, x)
+
+
+def test_width1_slice_write_raises_on_bad_cuda_inputs():
+    dev = _card()
+    x = torch.zeros((2, 64, 1024), device=dev)     # a 256 KB slab
+    with pytest.raises(ValueError, match="shared memory"):
+        ws.width1_slice_write(x, 5)
+    with pytest.raises(TypeError):
+        ws.width1_slice_write(x[:, :8].double(), 5)
+    with pytest.raises(ValueError):
+        ws.width1_slice_write(x[:, :8].transpose(1, 2).contiguous()
+                              .transpose(1, 2), 5)
+
+
+def test_time_rate_refuses_a_run_that_ignores_its_steps():
+    """The rate probe's construct: a run whose time does not grow with the
+    step count (here one step whatever is asked) is refused."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(0)
+    x, w = mr.make_inputs(mr.M_CARD, mr.K, 9, g, dev)["int8"]
+    with pytest.raises(RuntimeError, match="step count|elided"):
+        mr.time_rate(lambda steps: mr.matmul_rate(x, w, 9, 1),
+                     2.0 * mr.M_CARD * mr.K * mr.N * 9, "int8")

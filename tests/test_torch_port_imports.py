@@ -49,8 +49,10 @@ def test_every_port_module_imports():
     """Importing each module must not build kernels or touch a device."""
     names = [m.name for m in pkgutil.walk_packages(
         alphazero_gomoku_tpu_torch.__path__, "alphazero_gomoku_tpu_torch.")]
-    for module in ("tree_kernels", "fused_net", "int8_net", "int8_tower"):
-        assert f"alphazero_gomoku_tpu_torch.ops.{module}" in names
+    for module in ("ops.tree_kernels", "ops.fused_net", "ops.int8_net",
+                   "ops.int8_tower", "tools.matmul_rate",
+                   "repro.width1_slice_write"):
+        assert f"alphazero_gomoku_tpu_torch.{module}" in names
     for name in names:
         importlib.import_module(name)
     from alphazero_gomoku_tpu_torch.ops import _build
@@ -58,7 +60,8 @@ def test_every_port_module_imports():
 
 
 def test_kernel_wrappers_have_no_fallback():
-    for name in ("tree_kernels.py", "fused_net.py", "int8_net.py",
-                 "int8_tower.py"):
-        tree = ast.parse((PORT / "ops" / name).read_text())
+    for name in ("ops/tree_kernels.py", "ops/fused_net.py",
+                 "ops/int8_net.py", "ops/int8_tower.py",
+                 "tools/matmul_rate.py", "repro/width1_slice_write.py"):
+        tree = ast.parse((PORT / name).read_text())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), name
