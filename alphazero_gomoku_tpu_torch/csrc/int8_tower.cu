@@ -16,226 +16,148 @@
 //                      the product exact in float64, one rounding to float32
 //   ReLU, skip     h = max(y + skip, 0)                      (float32)
 //   requant        as the obs requant, rint rounding half to even
-// with explicit __fmul_rn / __fadd_rn / __dmul_rn / __dadd_rn, built with
-// --fmad=false, so that nothing is contracted.
+// with explicit intrinsics (__fmul_rn, __fadd_rn, and the double __fma_rn,
+// which rounds the exact product plus the bias once, as the multiply and
+// add of the plain version do), built with --fmad=false, so that nothing
+// else is contracted.
 //
-// Layouts (as ops/int8_tower.py documents them): activations NHWC, the conv
-// inputs int8 [B, H, W, C] and the skip track float32; stem weights [C, KS]
-// int8, column (3*dy + dx) * cin + ci, zero past 9 * cin; block weights
-// [L, 2, C, 9 * C] int8, column (3*dy + dx) * C + ci; per-channel scales,
-// biases and requant reciprocals float32.
+// Layouts (as ops/int8_tower.py documents them): the observation and the
+// output NHWC float32; stem weights [C, KS] int8, column (3*dy + dx) * cin +
+// ci, zero past 9 * cin; block weights [L, 2, C, 9 * C] int8, column
+// (3*dy + dx) * C + ci: K-contiguous rows, as wgmma's B wants them, which
+// the wrapper re-lays once per bundle tap by tap for the kernel's bulk
+// copies (ops/conv_tile.py tile_weights).  The conv inputs (act_q, mid_q)
+// are int8 padded-board chunk planes (csrc/conv_tile.cuh), zeroed once by
+// the wrapper; the float32 skip track is the output buffer.
 //
-// Design: one launch per conv, int8 activations and the float32 skip track in
-// global memory between them (at batch 256 and 6x128 an int8 activation is
-// 7.4 MB and the skip track 29.5 MB: both stay in the 50 MB L2).  A conv is
-// an implicit GEMM, M = B*H*W pixels, N = C output channels, K = 9 taps x C
-// input channels.  A thread block of 8 warps computes a 128-pixel x C tile
-// with mma.sync m16n8k32 int8 tensor-core instructions and int32
-// accumulators: per tap it stages the 128 shifted pixels' C channels (zero
-// outside the board) and the tap's [C, C] weights in shared memory (16 KB
-// each at C = 128, rows padded by 16 bytes so that the fragment loads hit 32
-// distinct banks), then each warp multiplies its 32-row x C/2 slice, 32 deep
-// at a time.  The epilogue works from the accumulator fragments.  The stem
-// is the same GEMM with K = 9 * cin padded to a multiple of 32, its A tile
-// gathered from the float32 observation and requantized on the way; it
-// reads each observation value once per tile, for all C outputs.
+// Design: one launch per conv on the shared core csrc/conv_tile.cuh (64-row
+// padded-board tiles staged once per conv by bulk copies on mbarriers, the
+// conv's nine [C, C] weight taps resident in shared memory for the launch,
+// wgmma m64nCk32 s8 -> s32 from shared memory, two warpgroups taking turns
+// on the tensor cores, persistent blocks).  At C = 128 the nine taps take
+// 147 KB, and two 14 KB board buffers a warpgroup fit beside them.  The
+// epilogue (Int8Op) works from the accumulator registers: dequant, skip,
+// ReLU, requant into the next conv's planes, the float steps as listed
+// above, each as cheap as it can be and still the same IEEE operation:
+// scale and bias are kept in shared memory as doubles, the int -> double
+// conversion is the 2^52 + 2^31 trick, product and sum one double fma
+// (the product is exact), and the requant rounds by adding 1.5 * 2^23, so
+// that one conversion an output is left.  The stem is the same GEMM with
+// one tap of K = KS (9 * cin padded to 32), its A tile gathered from the
+// float32 observation and requantized on the way.
 //
 // What bounds it on the card: the operations, 2*B*H*W*9*C*C per block conv,
-// over the dense int8 tensor-core rate.  This simple design (mma.sync, not
-// wgmma; synchronous staging with two block-wide barriers per tap; the
-// activations re-read nine times from L2) reaches a fraction of it.  wgmma,
-// TMA and keeping a tile's activations on chip across layers are for a later
-// PR.
+// over the dense int8 tensor-core rate (1979 TOP/s); the tile computes 256
+// rows per 225 pixels at 15x15, its operands take 3/4 of shared memory's
+// bandwidth at that rate, and the epilogues move the float32 skip track.
+// One launch per conv leaves the activations in L2 between launches (an
+// int8 activation is 9.5 MB at batch 256): a whole board's tower does not
+// fit on chip (its int8 input, mid activation and float32 skip track alone
+// take 204 KB at 15x15).
 //
 // Built by ops/_build.py (nvcc -gencode arch=compute_90a,code=sm_90a -O3
 // --fmad=false).  The entry point launches every conv on the stream it is
-// given and returns the first cudaGetLastError() != 0.
+// given and returns the first CUDA error.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "conv_tile.cuh"
+
 namespace {
 
-constexpr int BM = 128;       // pixels per block
-constexpr int THREADS = 256;  // 8 warps: 4 along M x 2 along N
-constexpr int PAD = 16;       // shared-memory row padding in bytes
+using namespace conv_tile;
 
-enum Mode { STEM, CONV1, CONV2, CONV2_LAST };
-
-__device__ __forceinline__ float dequant(int acc, float scale, float bias) {
-  const double prod = __dmul_rn((double)__int2float_rn(acc), (double)scale);
-  return __double2float_rn(__dadd_rn(prod, (double)bias));
+// float(double(float(acc)) * scale + bias), scale and bias given in
+// double.  float(acc) is acc itself below 2^24; the int -> double
+// conversion is the exact 2^52 + 2^31 bias trick (an xor and a double
+// add), and the product, exact in double, and the sum are one fma rounded
+// once, as the separate multiply and add round: only the final conversion
+// to float is left to the conversion unit.
+__device__ __forceinline__ float dequant(int acc, double scale,
+                                         double bias) {
+  if (acc >= (1 << 24) || acc <= -(1 << 24)) acc = (int)__int2float_rn(acc);
+  const double a = __dsub_rn(
+      __hiloint2double(0x43300000, acc ^ (int)0x80000000),
+      4503601774854144.0);  // 2^52 + 2^31
+  return __double2float_rn(__fma_rn(a, scale, bias));
 }
 
+// clamp(rint(x * inv), -127, 127), rint rounding half to even: x * inv
+// clamped to [-128, 128] (finite x: the ReLU's output or an observation),
+// rounded by adding 1.5 * 2^23, whose float has an ulp of 1, and read back
+// from the sum's bits.
 __device__ __forceinline__ int8_t requant(float x, float inv) {
-  const float v = fminf(fmaxf(rintf(__fmul_rn(x, inv)), -127.f), 127.f);
-  return (int8_t)__float2int_rn(v);
+  const float v = fminf(fmaxf(__fmul_rn(x, inv), -128.f), 128.f);
+  const int q = __float_as_int(__fadd_rn(v, 12582912.f)) - 0x4B400000;
+  return (int8_t)min(max(q, -127), 127);
 }
 
-__device__ __forceinline__ uint32_t lds32(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// One conv of the tower over a 128-pixel tile.  K is staged KT deep per
-// chunk: a block conv has 9 chunks (one tap each, KT = C), the stem
-// n_chunks chunks of KT = 32 over its flattened (tap, ci) columns.
-//   STEM       : h = relu(dq(acc));        skip = h; out_q = rq(h, inv_out)
-//   CONV1      : m = relu(dq(acc));        out_q = rq(m, inv_out)
-//   CONV2      : h = relu(dq(acc) + skip); skip = h; out_q = rq(h, inv_out)
+// The int8 tower's element types, stem conversion and epilogue values:
+//   STEM       : h = relu(dq(acc));        skip = h; out = rq(h, inv_out)
+//   CONV1      : m = relu(dq(acc));        out = rq(m, inv_out)
+//   CONV2      : h = relu(dq(acc) + skip); skip = h; out = rq(h, inv_out)
 //   CONV2_LAST : h = relu(dq(acc) + skip); skip = h
-// skip is read and written by the same thread, element by element.
-template <int C, int KT, int MODE>
-__global__ void __launch_bounds__(THREADS, 2)
-int8_conv_kernel(const int8_t* __restrict__ in_q,
-                 const float* __restrict__ obs,
-                 const float* __restrict__ inv_obs, int cin, int n_chunks,
-                 const int8_t* __restrict__ w, int k_row,
-                 const float* __restrict__ scale,
-                 const float* __restrict__ bias,
-                 const float* __restrict__ inv_out, float* skip,
-                 int8_t* __restrict__ out_q, int n_pix, int height,
-                 int width) {
-  constexpr int LD = KT + PAD;
-  constexpr int NT = C / 16;      // n8 tiles per warp (a warp has C/2 columns)
-  __shared__ __align__(16) int8_t sa[BM * LD];
-  __shared__ __align__(16) int8_t sb[C * LD];
+// skip is read and written by the same thread, element by element.  The
+// per-channel scale and bias sit in shared memory as doubles, the requant
+// reciprocal as a float: NS scales, NS biases, then NS floats.
+struct Int8Op {
+  using Elem = int8_t;
+  using Acc = int;
+  struct Cols {
+    double2 scale, bias;
+    float2 inv;
+  };
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int g = lane >> 2;        // the fragment's group (row / column)
-  const int t = lane & 3;         // its thread in the group
-  const int wm = warp & 3;
-  const int wn = warp >> 2;
-  const int p0 = blockIdx.x * BM;
-  const int hw = height * width;
-
-  int acc[2][NT][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
-
-  for (int chunk = 0; chunk < n_chunks; ++chunk) {
-    if constexpr (MODE == STEM) {
-      // A: the tile's (tap, ci) columns chunk*32 .. +32, requantized obs
-      for (int i = tid; i < BM * KT; i += THREADS) {
-        const int r = i / KT;
-        const int kk = i % KT;
-        const int k = chunk * KT + kk;
-        const int p = p0 + r;
-        int8_t v = 0;
-        if (p < n_pix && k < 9 * cin) {
-          const int tap = k / cin;
-          const int ci = k - tap * cin;
-          const int b = p / hw;
-          const int rem = p - b * hw;
-          const int y = rem / width + tap / 3 - 1;
-          const int x = rem % width + tap % 3 - 1;
-          if (y >= 0 && y < height && x >= 0 && x < width)
-            v = requant(obs[(b * hw + y * width + x) * cin + ci], inv_obs[ci]);
-        }
-        sa[r * LD + kk] = v;
-      }
-    } else {
-      // A: the tile's pixels shifted by the tap, C channels, 16-byte loads
-      const int dy = chunk / 3 - 1;
-      const int dx = chunk % 3 - 1;
-      for (int i = tid; i < BM * (KT / 16); i += THREADS) {
-        const int r = i / (KT / 16);
-        const int q = i % (KT / 16);
-        const int p = p0 + r;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (p < n_pix) {
-          const int b = p / hw;
-          const int rem = p - b * hw;
-          const int y = rem / width + dy;
-          const int x = rem % width + dx;
-          if (y >= 0 && y < height && x >= 0 && x < width)
-            v = *reinterpret_cast<const uint4*>(
-                in_q + (size_t)(b * hw + y * width + x) * C + 16 * q);
-        }
-        *reinterpret_cast<uint4*>(sa + r * LD + 16 * q) = v;
-      }
-    }
-    // B: the chunk's KT columns of every output channel's weight row
-    for (int i = tid; i < C * (KT / 16); i += THREADS) {
-      const int r = i / (KT / 16);
-      const int q = i % (KT / 16);
-      *reinterpret_cast<uint4*>(sb + r * LD + 16 * q) =
-          *reinterpret_cast<const uint4*>(w + (size_t)r * k_row +
-                                          chunk * KT + 16 * q);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < KT; kk += 32) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int8_t* base = sa + (wm * 32 + mi * 16 + g) * LD + kk + 4 * t;
-        a[mi][0] = lds32(base);
-        a[mi][1] = lds32(base + 8 * LD);
-        a[mi][2] = lds32(base + 16);
-        a[mi][3] = lds32(base + 8 * LD + 16);
-      }
-#pragma unroll
-      for (int ni = 0; ni < NT; ++ni) {
-        const int8_t* base =
-            sb + (wn * (C / 2) + ni * 8 + g) * LD + kk + 4 * t;
-        const uint32_t b0 = lds32(base);
-        const uint32_t b1 = lds32(base + 16);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) mma_s8(acc[mi][ni], a[mi], b0, b1);
-      }
-    }
-    __syncthreads();
+  static __device__ __forceinline__ int8_t stem_value(float x, int ci,
+                                                      const ConvArgs& a) {
+    return requant(x, a.inv_obs[ci]);
   }
 
-  // epilogue: accumulator element e of tile (mi, ni) is row g + 8 * (e >> 1),
-  // column 2 * t + (e & 1)
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int p = p0 + wm * 32 + mi * 16 + g + 8 * half;
-      if (p >= n_pix) continue;
-#pragma unroll
-      for (int ni = 0; ni < NT; ++ni) {
-        const int col = wn * (C / 2) + ni * 8 + 2 * t;
-        const size_t o = (size_t)p * C + col;
-        float h0 = dequant(acc[mi][ni][2 * half], scale[col], bias[col]);
-        float h1 =
-            dequant(acc[mi][ni][2 * half + 1], scale[col + 1], bias[col + 1]);
-        if constexpr (MODE == CONV2 || MODE == CONV2_LAST) {
-          const float2 s = *reinterpret_cast<const float2*>(skip + o);
-          h0 = __fadd_rn(h0, s.x);
-          h1 = __fadd_rn(h1, s.y);
-        }
-        h0 = fmaxf(h0, 0.f);
-        h1 = fmaxf(h1, 0.f);
-        if constexpr (MODE != CONV1)
-          *reinterpret_cast<float2*>(skip + o) = make_float2(h0, h1);
-        if constexpr (MODE != CONV2_LAST)
-          *reinterpret_cast<char2*>(out_q + o) = make_char2(
-              requant(h0, inv_out[col]), requant(h1, inv_out[col + 1]));
-      }
+  static __device__ __forceinline__ void load_params(const EpiArgs& e, int n0,
+                                                     int ns, uint8_t* p) {
+    double* d = reinterpret_cast<double*>(p);
+    float* inv = reinterpret_cast<float*>(d + 2 * ns);
+    for (int c = threadIdx.x; c < ns; c += THREADS) {
+      d[c] = (double)e.scale[n0 + c];
+      d[ns + c] = (double)e.bias[n0 + c];
+      inv[c] = e.inv_out != nullptr ? e.inv_out[n0 + c] : 0.f;
     }
   }
-}
+
+  template <int NS>
+  static __device__ __forceinline__ Cols cols(const uint8_t* p, int cl) {
+    const double* d = reinterpret_cast<const double*>(p);
+    return Cols{*reinterpret_cast<const double2*>(d + cl),
+                *reinterpret_cast<const double2*>(d + NS + cl),
+                *reinterpret_cast<const float2*>(
+                    reinterpret_cast<const float*>(d + 2 * NS) + cl)};
+  }
+
+  // h = relu(dq(acc) (+ skip)) for a column pair
+  template <int MODE>
+  static __device__ __forceinline__ float2 value(const Cols& cp, int a0,
+                                                 int a1, float2 s) {
+    float h0 = dequant(a0, cp.scale.x, cp.bias.x);
+    float h1 = dequant(a1, cp.scale.y, cp.bias.y);
+    if constexpr (MODE == CONV2 || MODE == CONV2_LAST) {
+      h0 = __fadd_rn(h0, s.x);
+      h1 = __fadd_rn(h1, s.y);
+    }
+    return make_float2(fmaxf(h0, 0.f), fmaxf(h1, 0.f));
+  }
+
+  // the pair requantized, two bytes in the low half
+  static __device__ __forceinline__ uint32_t pack(const Cols& cp, float2 h) {
+    return (uint32_t)(uint8_t)requant(h.x, cp.inv.x) |
+           ((uint32_t)(uint8_t)requant(h.y, cp.inv.y) << 8);
+  }
+};
+
+constexpr int MW = 1;  // tiles of 64 rows (conv_tile.cuh)
 
 template <int C>
-int launch_tower(const float* obs, int n_pix, int height, int width, int cin,
+int launch_tower(const float* obs, const Geometry& geo, int cin,
                  int n_blocks, int ks, const int8_t* stem_w,
                  const float* stem_scale, const float* stem_b,
                  const float* inv_obs, const float* inv_first,
@@ -243,32 +165,41 @@ int launch_tower(const float* obs, int n_pix, int height, int width, int cin,
                  const float* block_b, const float* inv_mid,
                  const float* inv_next, int8_t* act_q, int8_t* mid_q,
                  float* out, cudaStream_t s) {
-  const int grid = (n_pix + BM - 1) / BM;
-  int8_conv_kernel<C, 32, STEM><<<grid, THREADS, 0, s>>>(
-      nullptr, obs, inv_obs, cin, ks / 32, stem_w, ks, stem_scale, stem_b,
-      inv_first, out, act_q, n_pix, height, width);
-  int err = (int)cudaGetLastError();
+  ConvArgs a{};
+  a.geo = geo;
+  a.n_slices = 1;
+  a.obs = obs;
+  a.inv_obs = inv_obs;
+  a.cin = cin;
+  a.ks = ks;
+  a.w = reinterpret_cast<const uint8_t*>(stem_w);
+  a.kc = ks / 16;
+  uint8_t* act = reinterpret_cast<uint8_t*>(act_q);
+  uint8_t* mid = reinterpret_cast<uint8_t*>(mid_q);
+  EpiArgs e{stem_scale, stem_b, inv_first, out, act, C, geo.rows_total};
+  int err = launch_stem<Int8Op, C, MW>(a, e, s);
   if (err != 0) return err;
+
+  a.kc = C / 16;
   const size_t wsize = (size_t)C * 9 * C;
   for (int i = 0; i < n_blocks; ++i) {
-    int8_conv_kernel<C, C, CONV1><<<grid, THREADS, 0, s>>>(
-        act_q, nullptr, nullptr, 0, 9, block_w + (2 * i) * wsize, 9 * C,
-        block_scale + (2 * i) * C, block_b + (2 * i) * C, inv_mid + i * C,
-        nullptr, mid_q, n_pix, height, width);
-    err = (int)cudaGetLastError();
+    a.act = act;
+    a.w = reinterpret_cast<const uint8_t*>(block_w + (2 * i) * wsize);
+    e = EpiArgs{block_scale + (2 * i) * C, block_b + (2 * i) * C,
+                inv_mid + i * C, nullptr, mid, C, geo.rows_total};
+    err = launch_conv<Int8Op, C, CONV1, C / 16, MW>(a, e, s);
     if (err != 0) return err;
-    const int8_t* w2 = block_w + (2 * i + 1) * wsize;
+    a.act = mid;
+    a.w = reinterpret_cast<const uint8_t*>(block_w + (2 * i + 1) * wsize);
     const float* s2 = block_scale + (2 * i + 1) * C;
     const float* b2 = block_b + (2 * i + 1) * C;
-    if (i + 1 < n_blocks)
-      int8_conv_kernel<C, C, CONV2><<<grid, THREADS, 0, s>>>(
-          mid_q, nullptr, nullptr, 0, 9, w2, 9 * C, s2, b2, inv_next + i * C,
-          out, act_q, n_pix, height, width);
-    else
-      int8_conv_kernel<C, C, CONV2_LAST><<<grid, THREADS, 0, s>>>(
-          mid_q, nullptr, nullptr, 0, 9, w2, 9 * C, s2, b2, nullptr, out,
-          nullptr, n_pix, height, width);
-    err = (int)cudaGetLastError();
+    if (i + 1 < n_blocks) {
+      e = EpiArgs{s2, b2, inv_next + i * C, out, act, C, geo.rows_total};
+      err = launch_conv<Int8Op, C, CONV2, C / 16, MW>(a, e, s);
+    } else {
+      e = EpiArgs{s2, b2, nullptr, out, nullptr, C, geo.rows_total};
+      err = launch_conv<Int8Op, C, CONV2_LAST, C / 16, MW>(a, e, s);
+    }
     if (err != 0) return err;
   }
   return 0;
@@ -276,26 +207,32 @@ int launch_tower(const float* obs, int n_pix, int height, int width, int cin,
 
 }  // namespace
 
-// The tower: out <- stem(obs) with act_q <- its requant, then per block
-// mid_q <- rq(relu(conv1(act_q))), out <- relu(conv2(mid_q) + out) with
-// act_q <- its requant (not after the last block).  The result is left in
-// out.  Returns 0, or the CUDA error of the first launch that failed; a C
-// other than 32, 64 or 128, or a KS that is not a multiple of 32, returns
-// cudaErrorInvalidValue.
+// The tower on square boards of side `size`: out <- stem(obs) with act_q <-
+// its requant, then per block mid_q <- rq(relu(conv1(act_q))), out <-
+// relu(conv2(mid_q) + out) with act_q <- its requant (not after the last
+// block).  The result is left in out (NHWC float32).  act_q and mid_q are
+// zeroed chunk planes of rows_total rows (conv_tile::geometry).  Returns 0,
+// or the CUDA error of the first launch that failed; a C other than 32, 64
+// or 128, a KS that is not a multiple of 32 below 9 * cin or above 128, a
+// rows_total
+// that is not the geometry's, or a board too large for shared memory
+// returns cudaErrorInvalidValue.
 extern "C" int int8_tower_launch(
-    const float* obs, int batch, int height, int width, int cin, int c,
-    int n_blocks, int ks, const int8_t* stem_w, const float* stem_scale,
+    const float* obs, int batch, int size, int cin, int c, int n_blocks,
+    int ks, const int8_t* stem_w, const float* stem_scale,
     const float* stem_b, const float* inv_obs, const float* inv_first,
     const int8_t* block_w, const float* block_scale, const float* block_b,
     const float* inv_mid, const float* inv_next, int8_t* act_q,
-    int8_t* mid_q, float* out, void* stream) {
+    int8_t* mid_q, int rows_total, float* out, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  const int n_pix = batch * height * width;
-  if (ks % 32 != 0 || ks < 9 * cin) return (int)cudaErrorInvalidValue;
-#define INT8_TOWER_ARGS                                                     \
-  obs, n_pix, height, width, cin, n_blocks, ks, stem_w, stem_scale, stem_b, \
-      inv_obs, inv_first, block_w, block_scale, block_b, inv_mid, inv_next, \
-      act_q, mid_q, out, s
+  const Geometry geo = geometry(batch, size, 64 * MW);
+  if (ks % 32 != 0 || ks < 9 * cin || ks > 128 || batch < 1 ||
+      rows_total != geo.rows_total)
+    return (int)cudaErrorInvalidValue;
+#define INT8_TOWER_ARGS                                                    \
+  obs, geo, cin, n_blocks, ks, stem_w, stem_scale, stem_b, inv_obs,        \
+      inv_first, block_w, block_scale, block_b, inv_mid, inv_next, act_q, \
+      mid_q, out, s
   if (c == 128) return launch_tower<128>(INT8_TOWER_ARGS);
   if (c == 64) return launch_tower<64>(INT8_TOWER_ARGS);
   if (c == 32) return launch_tower<32>(INT8_TOWER_ARGS);

@@ -13,9 +13,11 @@ tower build with ``--fmad=false``, so that no multiply and add are
 contracted into an FMA and they round as their plain versions do; the bf16
 tower, the rate probe (only tensor-core sums) and the slice write (its one
 multiply and add rounded apart by intrinsics) build without it.  No PyTorch
-headers are included, so a build takes seconds.
+headers are included, so a build takes seconds.  The two towers include
+``csrc/conv_tile.cuh``, their shared core, found beside the source.
 :func:`build_all` starts one ``nvcc`` per source at once.  The library name
-carries a hash of the source and the flags, so an edit rebuilds.  Paths are
+carries a hash of the source, the headers it includes and the flags, so an
+edit to any of them rebuilds.  Paths are
 resolved from this file, not from the working directory.
 """
 
@@ -26,6 +28,7 @@ import dataclasses
 import hashlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -81,9 +84,30 @@ def _flags(name: str):
     return NVCC_FLAGS + SOURCE_FLAGS[name]
 
 
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every header it includes with quotes, followed
+    recursively (``conv_tile.cuh``, the towers' shared core)."""
+    found, todo = [], [CSRC_DIR / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in found:
+            continue
+        found.append(path)
+        for inc in _INCLUDE.findall(path.read_text()):
+            if (path.parent / inc).exists():
+                todo.append(path.parent / inc)
+    return found
+
+
 def _library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(_flags(name)).encode())
+    """The library's path: a hash of the source, the headers it includes and
+    the flags, so an edit to any of them rebuilds."""
+    digest = hashlib.sha256(" ".join(_flags(name)).encode())
+    for path in sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -116,7 +140,9 @@ def build_all(names: Iterable[str]) -> Dict[str, BuiltLibrary]:
             continue
         out = _library_path(name)
         report = out.with_suffix(".json")
-        ptxas = [ln.strip() for ln in output.splitlines() if "ptxas" in ln]
+        # ptxas's own lines and its "bytes spill stores" lines under them
+        ptxas = [ln.strip() for ln in output.splitlines()
+                 if "ptxas" in ln or "spill" in ln]
         # atomic renames: a concurrent build never sees a half-written file
         tmp_report = report.with_name(f"{report.name}.{os.getpid()}.tmp")
         tmp_report.write_text(json.dumps({"seconds": seconds,

@@ -15,9 +15,11 @@ Counterpart of ``alphazero_gomoku_tpu/ops/fused_net.py``:
     on a CUDA tensor, and as :func:`fused_tower_plain` on a CPU tensor.
     Precision as the TPU kernel: activations and the residual track in
     float32, each conv's input rounded to bf16, bf16 weights, float32 sums;
-    bias, ReLU and the residual add in float32.  The wrapper counts its calls
-    that reach the kernel in ``fused_tower.launches`` (one per tower; a
-    tower is 1 + 2L CUDA launches).
+    bias, ReLU and the residual add in float32.  The kernel runs on
+    padded-board tiles (``ops/conv_tile.py``) with K-major weights
+    (:func:`kmajor_weights`, re-packed once per bundle).  The wrapper counts
+    its calls that reach the kernel in ``fused_tower.launches`` (one per
+    tower; a tower is 1 + 2L CUDA launches).
   - :func:`fused_predict` is the tower plus the policy and value heads as
     plain torch ops (the JAX heads are XLA outside the kernel);
     :func:`folded_apply_plain` is the same with the plain tower.
@@ -44,13 +46,16 @@ import torch.nn.functional as F
 
 from alphazero_gomoku_tpu_torch.device import resolve_device
 from alphazero_gomoku_tpu_torch.models.resnet import BN_EPS, NetConfig, Params
-from alphazero_gomoku_tpu_torch.ops import _build
+from alphazero_gomoku_tpu_torch.ops import _build, conv_tile
 from alphazero_gomoku_tpu_torch.ops.tree_kernels import _check
 
 Folded = Dict[str, torch.Tensor]
 
-# the kernel's tile of output channels is the whole width (csrc/fused_net.cu)
 KERNEL_CHANNELS = (64, 128)
+KERNEL_TILE = 64        # output rows of the kernel's tiles (conv_tile.py)
+KERNEL_SLICE = 64       # output channels of a kernel block
+STEM_K_ALIGN = 16       # the bf16 wgmma's depth
+STEM_K_MAX = 64         # the kernel's stem takes K of 16 to 64
 
 
 # ----------------------------------------------------------------------
@@ -161,17 +166,38 @@ def _library() -> ctypes.CDLL:
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.fused_tower_launch.argtypes = [p, i, i, i, i, i, i, p, p, p, p,
-                                           p, p, p]
+                                           p, p, i, p, p]
         lib.fused_tower_launch.restype = i
         lib._argtypes_set = True
     return lib
 
 
+def kmajor_weights(folded: Folded) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The folded weights re-packed K-contiguous, as the kernel's wgmma B
+    operand wants them: ``stem [C, KS]`` (column ``(3*dy + dx)*cin + ci``,
+    zero up to ``KS = 9*cin`` rounded up to 16) and ``blocks [L, 2, C,
+    9*C]`` (column ``(3*dy + dx)*C + ci``).  Made once per bundle
+    (``conv_tile.derived``); ``fold_bn``'s own output is left as it is."""
+
+    def make(stem, block):
+        _, cin, c = stem.shape
+        ks = -(-9 * cin // STEM_K_ALIGN) * STEM_K_ALIGN
+        stem_k = F.pad(stem.permute(2, 0, 1).reshape(c, 9 * cin),
+                       (0, ks - 9 * cin)).contiguous()
+        block_k = block.permute(0, 1, 4, 2, 3).reshape(
+            block.shape[0], 2, c, 9 * c).contiguous()
+        return stem_k, block_k
+
+    return conv_tile.derived("fused_kmajor",
+                             (folded["stem_w"], folded["block_w"]), make)
+
+
 def fused_tower(folded: Folded, obs: torch.Tensor) -> torch.Tensor:
     """The residual tower: ``obs [B, H, W, cin]`` f32 -> f32 ``[B, H, W, C]``.
 
-    CPU tensors take :func:`fused_tower_plain`; CUDA tensors the kernel
-    (``C`` of 64 or 128), or raise.
+    CPU tensors take :func:`fused_tower_plain`; CUDA tensors the kernel, or
+    raise: it takes ``C`` of 64 or 128 and square boards up to
+    ``conv_tile.MAX_BOARD`` (21).
     """
     if obs.dim() != 4:
         raise ValueError(f"obs must be [B, H, W, cin], got {tuple(obs.shape)}")
@@ -188,31 +214,34 @@ def fused_tower(folded: Folded, obs: torch.Tensor) -> torch.Tensor:
         return fused_tower_plain(folded, obs)
     if dev.type != "cuda":
         raise ValueError(f"fused_tower: unsupported device {dev}")
-    for name, t in (("obs", obs), ("stem_w", folded["stem_w"]),
-                    ("block_w", folded["block_w"])):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (the kernel's "
-                             f"vector loads)")
     if c not in KERNEL_CHANNELS:
         raise ValueError(f"fused_tower's kernel takes {KERNEL_CHANNELS} "
                          f"channels, got {c}")
-    if b * h * w * max(c, cin) >= 2 ** 31:
-        raise ValueError("fused_tower's kernel indexes with 32-bit ints: "
-                         f"batch {b} is too large")
+    if 9 * cin > STEM_K_MAX:
+        raise ValueError(f"fused_tower's kernel takes a stem of at most "
+                         f"{STEM_K_MAX} columns (cin <= 7), got cin {cin}")
+    geo = conv_tile.check_kernel_shape("fused_tower", obs.shape, c, 2,
+                                       KERNEL_TILE)
+    stem_k, block_k = kmajor_weights(folded)
+    stem_t, block_t = conv_tile.derived(
+        "fused_tiles", (stem_k, block_k),
+        lambda s, w: (conv_tile.tile_weights(s, KERNEL_SLICE),
+                      conv_tile.tile_weights(w, KERNEL_SLICE)))
     lib = _library()
-    act_a = torch.empty((b, h, w, c), dtype=torch.float32, device=dev)
-    act_b = torch.empty_like(act_a)
+    act, mid = conv_tile.zeroed_planes((c // 8, geo.rows_total, 8),
+                                       torch.bfloat16, dev)
+    out = torch.empty((b, h, w, c), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.fused_tower_launch(
-            obs.data_ptr(), b, h, w, cin, c, l_blocks,
-            folded["stem_w"].data_ptr(), folded["stem_b"].data_ptr(),
-            folded["block_w"].data_ptr(), folded["block_b"].data_ptr(),
-            act_a.data_ptr(), act_b.data_ptr(),
+            obs.data_ptr(), b, h, cin, c, l_blocks, stem_k.shape[1],
+            stem_t.data_ptr(), folded["stem_b"].data_ptr(),
+            block_t.data_ptr(), folded["block_b"].data_ptr(),
+            act.data_ptr(), mid.data_ptr(), geo.rows_total, out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_tower launch failed with CUDA error {err}")
     fused_tower.launches += 1
-    return act_a
+    return out
 
 
 fused_tower.launches = 0

@@ -9,7 +9,10 @@ Counterpart of ``alphazero_gomoku_tpu/ops/int8_tower.py``:
   - :func:`int8_tower` is the tower (stem and ``2L`` int8 3x3 SAME convs,
     int8 x int8 -> int32 sums, dequant, bias, ReLU, requant, float32 skip
     track) as the CUDA kernel in ``csrc/int8_tower.cu`` on a CUDA tensor, and
-    as :func:`int8_tower_plain` on a CPU tensor.  The wrapper counts its
+    as :func:`int8_tower_plain` on a CPU tensor.  The kernel runs on
+    padded-board tiles (``ops/conv_tile.py``); the wrapper re-lays the
+    bundle's weights for it once per bundle (``conv_tile.tile_weights``) and
+    keeps its zeroed activation planes.  The wrapper counts its
     calls that reach the kernel in ``int8_tower.launches`` (one per tower; a
     tower is ``1 + 2L`` CUDA launches).
   - :func:`int8_tower_apply` is the tower plus the float32 heads of
@@ -41,7 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from alphazero_gomoku_tpu_torch.models.resnet import NetConfig
-from alphazero_gomoku_tpu_torch.ops import _build
+from alphazero_gomoku_tpu_torch.ops import _build, conv_tile
 from alphazero_gomoku_tpu_torch.ops.int8_net import (
     HEAD_KEYS,
     Bundle,
@@ -56,6 +59,8 @@ Packed = Dict[str, torch.Tensor]
 # the kernel's tile of output channels is the whole width (csrc/int8_tower.cu)
 KERNEL_CHANNELS = (32, 64, 128)
 STEM_K_ALIGN = 32       # the int8 MMA's depth
+STEM_K_MAX = 128        # the kernel's stem takes K of 32 to 128
+KERNEL_TILE = 64        # output rows of the kernel's tiles (conv_tile.py)
 
 
 # ----------------------------------------------------------------------
@@ -150,9 +155,9 @@ def _library() -> ctypes.CDLL:
     lib = _build.build("int8_tower").lib
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.int8_tower_launch.argtypes = [p, i, i, i, i, i, i, i,
+        lib.int8_tower_launch.argtypes = [p, i, i, i, i, i, i,
                                           p, p, p, p, p, p, p, p, p, p,
-                                          p, p, p, p]
+                                          p, p, i, p, p]
         lib.int8_tower_launch.restype = i
         lib._argtypes_set = True
     return lib
@@ -162,8 +167,9 @@ def int8_tower(packed: Packed, obs: torch.Tensor) -> torch.Tensor:
     """The int8 residual tower: ``obs [B, H, W, cin]`` f32 -> f32
     ``[B, H, W, C]``.
 
-    CPU tensors take :func:`int8_tower_plain`; CUDA tensors the kernel
-    (``C`` of 32, 64 or 128), or raise.
+    CPU tensors take :func:`int8_tower_plain`; CUDA tensors the kernel, or
+    raise: it takes ``C`` of 32, 64 or 128 and square boards up to
+    ``conv_tile.MAX_BOARD`` (21).
     """
     if obs.dim() != 4:
         raise ValueError(f"obs must be [B, H, W, cin], got {tuple(obs.shape)}")
@@ -192,27 +198,29 @@ def int8_tower(packed: Packed, obs: torch.Tensor) -> torch.Tensor:
     if c not in KERNEL_CHANNELS:
         raise ValueError(f"int8_tower's kernel takes {KERNEL_CHANNELS} "
                          f"channels, got {c}")
-    for name in ("stem_w", "block_w"):
-        if packed[name].data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (the kernel's "
-                             f"vector loads)")
-    if b * h * w * max(c, cin) >= 2 ** 31:
-        raise ValueError("int8_tower's kernel indexes with 32-bit ints: "
-                         f"batch {b} is too large")
+    if ks > STEM_K_MAX:
+        raise ValueError(f"int8_tower's kernel takes a stem of at most "
+                         f"{STEM_K_MAX} columns (cin <= 14), got {ks}")
+    geo = conv_tile.check_kernel_shape("int8_tower", obs.shape, c, 1,
+                                       KERNEL_TILE)
+    stem_t, block_t = conv_tile.derived(
+        "int8_tiles", (packed["stem_w"], packed["block_w"]),
+        lambda s, w: (conv_tile.tile_weights(s, c),
+                      conv_tile.tile_weights(w, c)))
     lib = _library()
-    act_q = torch.empty((b, h, w, c), dtype=i8, device=dev)
-    mid_q = torch.empty_like(act_q)
+    act_q, mid_q = conv_tile.zeroed_planes((c // 16, geo.rows_total, 16),
+                                           i8, dev)
     out = torch.empty((b, h, w, c), dtype=f32, device=dev)
     with torch.cuda.device(dev):
         err = lib.int8_tower_launch(
-            obs.data_ptr(), b, h, w, cin, c, l_blocks, ks,
-            packed["stem_w"].data_ptr(), packed["stem_scale"].data_ptr(),
+            obs.data_ptr(), b, h, cin, c, l_blocks, ks,
+            stem_t.data_ptr(), packed["stem_scale"].data_ptr(),
             packed["stem_b"].data_ptr(), packed["inv_obs"].data_ptr(),
-            packed["inv_first"].data_ptr(), packed["block_w"].data_ptr(),
+            packed["inv_first"].data_ptr(), block_t.data_ptr(),
             packed["block_scale"].data_ptr(), packed["block_b"].data_ptr(),
             packed["inv_mid"].data_ptr(), packed["inv_next"].data_ptr(),
-            act_q.data_ptr(), mid_q.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            act_q.data_ptr(), mid_q.data_ptr(), geo.rows_total,
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"int8_tower launch failed with CUDA error {err}")
     int8_tower.launches += 1

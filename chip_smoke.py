@@ -39,7 +39,11 @@ every kernel a path does not name must launch 0 times on it.  The k-leaf
 search and the reuse searches (with ``packed_advance_root`` between moves)
 are also held, on the kernels, against the same searches on the plain
 versions.  The towers' rates (K5, K4) are printed over the probe's
-``mma.sync`` rate at their own GEMM shape (M 57600, k 128).
+``mma.sync`` rate at their own GEMM shape (M 57600, k 128); K5 is also
+held and timed at the k-leaf path's 1024 boards; the two tower libraries'
+``ptxas`` registers and spills are printed (a spill fails the run); and
+one Gumbel@64 search on ``fused_tower`` against the same search on
+``fused_tower_plain`` prints how many root actions differ (a measurement).
 Every phase prints its seconds.  Nothing is caught: a failed phase exits
 non-zero.  Without a CUDA card it exits 1 before any result.  The last lines
 are the card's ``nvidia-smi`` name and power limit, a JSON line with each
@@ -295,6 +299,17 @@ def random_states(env, batch, plies, generator, dev):
     return states
 
 
+def ptxas_summary(lines):
+    """Each kernel's registers, and the spill bytes summed over them, from
+    ``nvcc -Xptxas -v`` (``_build.BuiltLibrary.ptxas``)."""
+    regs = [int(ln.split("Used ")[1].split()[0]) for ln in lines
+            if "Used " in ln and " registers" in ln]
+    spills = sum(int(ln.split(" bytes spill stores")[0].split()[-1])
+                 + int(ln.split(" bytes spill loads")[0].split()[-1])
+                 for ln in lines if "bytes spill stores" in ln)
+    return regs, spills
+
+
 def max_abs_err(got, want) -> float:
     return max(float((g.double() - w.double()).abs().max())
                for g, w in zip(got, want))
@@ -418,13 +433,21 @@ def main() -> int:
         log("tf32: matmul off, cudnn off")
 
     with Phase("2 build (one nvcc per source, at once)"):
-        for built in _build.build_all(["tree_kernels", "fused_net",
-                                       "int8_tower", "matmul_rate",
-                                       "width1_slice"]).values():
+        libs = _build.build_all(["tree_kernels", "fused_net", "int8_tower",
+                                 "matmul_rate", "width1_slice"])
+        for built in libs.values():
             how = "reused an earlier build" if built.reused else "built"
             log(f"{how}: {built.path.name}, nvcc {built.seconds:.2f} s")
             for line in built.ptxas:
                 log(f"  {line}")
+        for name, row in (("int8_tower", "int8_tower"),
+                          ("fused_net", "fused_tower")):
+            regs, spills = ptxas_summary(libs[name].ptxas)
+            rows[row].update(ptxas_registers=regs, ptxas_spill_bytes=spills)
+            log(f"{name}: {len(regs)} kernels, registers {regs}, spill "
+                f"stores and loads {spills} bytes")
+            if spills:
+                raise AssertionError(f"{name}: ptxas spills {spills} bytes")
 
     with Phase("2b the 6x128 net: init_params, BN stats fitted to "
                "random_calib_obs boards"):
@@ -757,6 +780,30 @@ def gumbel_phases(args, env, net_cfg, weights, net, dev, rows, smi):
         log(f"Gumbel search: actions, pi_target and root_q equal exactly "
             f"over {PI_BATCH} lanes")
 
+    with Phase(f"8b C4: a Gumbel@{GUMBEL_SIMS} m={GUMBEL_M} search (batch "
+               f"{BATCH}) on fused_tower and on fused_tower_plain, the same "
+               f"states and generator: root actions that differ"):
+        states = random_states(env, BATCH, 6, phase_gen(args.seed, 208, dev),
+                               dev)
+
+        def plain_eval(bundle, obs):
+            logits, value = fn.folded_apply_plain(net_cfg, bundle, obs)
+            return torch.softmax(logits, dim=-1), value
+
+        out = {}
+        for label, eval_fn in (("fused_tower", fused_eval),
+                               ("fused_tower_plain", plain_eval)):
+            g = phase_gen(args.seed, 308, dev)
+            out[label] = run_gumbel_mcts(env, GUMBEL_MCTS, eval_fn, folded,
+                                         states, g)
+        kern, plain = out["fused_tower"], out["fused_tower_plain"]
+        differ = int((kern[2] != plain[2]).sum())
+        pi_err = float((kern[0] - plain[0]).abs().max())
+        rows["fused_tower"]["c4_root_actions_differ"] = differ
+        log(f"C4: {differ} of {BATCH} root actions differ between the "
+            f"search on fused_tower and on fused_tower_plain (pi_target max "
+            f"abs difference {pi_err}); a measurement, no tolerance")
+
     sp_cfg = SelfPlayConfig(batch_games=BATCH, mcts=GUMBEL_MCTS,
                             max_moves=MOVES)
     gen = phase_gen(args.seed, 9, dev)
@@ -846,7 +893,8 @@ def int8_phases(args, env, net_cfg, weights, net, dev, rows, smi):
             raise AssertionError("int8 net too far from the float32 ResNet")
 
     with Phase(f"12 int8_tower against its plain version and int8_apply "
-               f"(batch {BATCH}, 6x128, {BOARD}x{BOARD}, tolerance 0)"):
+               f"(batch {BATCH} and {KLEAF * BATCH}, 6x128, {BOARD}x{BOARD}, "
+               f"tolerance 0)"):
         tower = t8.int8_tower(packed, obs)
         tower_plain = t8.int8_tower_plain(packed, obs)
         tower_mm = q8.int8_tower_mm(q, obs)
@@ -884,6 +932,28 @@ def int8_phases(args, env, net_cfg, weights, net, dev, rows, smi):
             f"{plain_ms:.4f} ms, library (int8_tower_mm: im2col + "
             f"torch._int_mm per conv) {library_ms:.4f} ms, bound "
             f"{bound_ms:.6f} ms ({bound_by})")
+
+        # the k-leaf path's shape: KLEAF leaves of each of BATCH games
+        big = KLEAF * BATCH
+        obs_big = env.encode(random_states(env, big, 30,
+                                           phase_gen(args.seed, 212, dev),
+                                           dev))
+        tower_big = t8.int8_tower(packed, obs_big)
+        for name, want in (("int8_tower_plain",
+                            t8.int8_tower_plain(packed, obs_big)),
+                           ("int8_tower_mm", q8.int8_tower_mm(q, obs_big))):
+            if not torch.equal(tower_big, want):
+                raise AssertionError(f"int8_tower at {big} boards differs "
+                                     f"from {name} (tolerance 0)")
+        big_ms = cuda_ms(lambda: t8.int8_tower(packed, obs_big), reps=10)
+        big_bound, big_by = int8_tower_bound(net_cfg, big)
+        big_tops = tower_flops(net_cfg, big) / big_ms / 1e9
+        rows["int8_tower"].update(boards_kleaf=big, ms_kleaf=big_ms,
+                                  bound_ms_kleaf=big_bound)
+        log(f"int8_tower at {big} boards (the k-leaf shape): == plain and "
+            f"int8_tower_mm, tolerance 0; kernel {big_ms:.4f} ms "
+            f"({big_tops:.1f} TOP/s int8), bound {big_bound:.6f} ms "
+            f"({big_by})")
 
     tower_eval = t8.make_int8_tower_eval_fn(net_cfg)
     with Phase(f"13 PUCT search on int8_tower against the same search on "

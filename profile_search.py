@@ -80,8 +80,9 @@ SEED = 0
 # the towers' kernels are found by kernel name (see _range_device_us)
 NETWORK = "network"
 TREE_KERNELS = ("select_walk", "gumbel_select_walk", "backup_paths")
-TOWER_KERNELS = ("conv3x3", "stem")
-INT8_TOWER_KERNELS = ("int8_conv",)
+# both towers' convs are conv_tile.cuh's conv_kernel (one instance per Op
+# and mode); a search runs one tower
+TOWER_KERNELS = ("conv",)
 
 
 def _ranged(name, fn):
@@ -127,11 +128,19 @@ def _range_device_us(prof, name) -> float:
                      and e.device_type == torch.autograd.DeviceType.CPU))
 
 
-def _kernel_device_us(spans, name) -> float:
-    """Device time of the kernels named ``<name>_kernel`` (mangled or not);
+def _kernel_pattern(name):
+    """Matches a kernel named ``<name>_kernel``, mangled or not;
     ``select_walk`` does not match ``gumbel_select_walk_kernel``."""
-    pattern = re.compile(rf"(?<![A-Za-z_]){name}_kernel")
-    return float(sum(e - s for n, s, e in spans if pattern.search(n)))
+    return re.compile(rf"(?<![A-Za-z_]){name}_kernel")
+
+
+def _kernel_device_us(spans, name) -> float:
+    """Device time of the kernels named ``<name>_kernel``, the union of
+    their intervals: a tower's convs are programmatic dependent launches,
+    and a conv's blocks may start (and wait) before the previous conv
+    ends."""
+    pattern = _kernel_pattern(name)
+    return _busy_us([sp for sp in spans if pattern.search(sp[0])])
 
 
 def profile_search(label, search, sims, kernel_groups):
@@ -165,15 +174,16 @@ def profile_search(label, search, sims, kernel_groups):
     print(f"[{label}] device time per simulation, {NETWORK} range (torch ops "
           f"of the eval): {_range_device_us(prof, NETWORK) / sims / 1e3:.4f} "
           f"ms")
-    named = 0.0
     for group, names in kernel_groups.items():
         us = sum(_kernel_device_us(spans, name) for name in names)
-        named += us
         print(f"[{label}] device time per simulation, {group} kernels: "
               f"{us / sims / 1e3:.4f} ms")
-    total = sum(e - s for _, s, e in spans)
+    named = [_kernel_pattern(name) for names in kernel_groups.values()
+             for name in names]
+    other = sum(e - s for n, s, e in spans
+                if not any(p.search(n) for p in named))
     print(f"[{label}] device time per simulation, all other kernels: "
-          f"{(total - named) / sims / 1e3:.4f} ms")
+          f"{other / sims / 1e3:.4f} ms")
 
     by_name = {}
     for name, s, e in spans:
@@ -251,10 +261,10 @@ def main() -> int:
                    {"tree": TREE_KERNELS})
     profile_search(f"PUCT@{MAIN_MCTS.n_simulations} int8 tower", puct_int8,
                    SIMS, {"tree": TREE_KERNELS,
-                          "int8 tower": INT8_TOWER_KERNELS})
+                          "int8 tower": TOWER_KERNELS})
     profile_search(f"PUCT@{kleaf.n_simulations} k={KLEAF} int8 tower",
                    puct_int8_kleaf, kleaf.n_simulations,
-                   {"tree": TREE_KERNELS, "int8 tower": INT8_TOWER_KERNELS})
+                   {"tree": TREE_KERNELS, "int8 tower": TOWER_KERNELS})
     profile_search(f"Gumbel@{GUMBEL_MCTS.n_simulations}", gumbel,
                    GUMBEL_MCTS.n_simulations,
                    {"tree": TREE_KERNELS, "fused tower": TOWER_KERNELS})

@@ -196,18 +196,26 @@ def test_exp_log_f32_on_the_card_equal_the_cpu():
     assert torch.equal(tk.log_f32(y.to(dev)).cpu(), tk.log_f32(y))
 
 
+# the towers' kernels at the edges of their tiles (csrc/conv_tile.cuh):
+# boards of one (9x9), four (15x15) and seven (19x19) 64-row tiles, a batch
+# of one, a ragged batch, the main path's 256 and the k-leaf path's 1024
+TOWER_BOARDS = (9, 15, 19)
+TOWER_BATCHES = (1, 11, 256, 1024)
+
+
+@pytest.mark.parametrize("batch", TOWER_BATCHES)
+@pytest.mark.parametrize("size", TOWER_BOARDS)
 @pytest.mark.parametrize("channels", [64, 128])
-def test_fused_tower_kernel_close_to_plain(channels):
+def test_fused_tower_kernel_close_to_plain(channels, size, batch):
     """The kernel sums in another order than the plain version; a sum on the
     other side of a bf16 rounding boundary moves the next conv's input by a
     bf16 step (see ``chip_smoke.FUSED_TOWER_STEPS``)."""
     dev = _card()
-    size, batch = 15, 40          # batch*225 is not a multiple of 64 pixels
     cfg = NetConfig(board_size=size, action_size=size * size,
                     n_res_blocks=2, channels=channels)
     folded = fn.fold_bn(cfg, *init_params(cfg, 1), device=dev)
     obs = make_env("gomoku", size).encode(_random_states(
-        make_env("gomoku", size), batch, 30, 3, dev))
+        make_env("gomoku", size), batch, 2 * size, 3, dev))
     fn.reset_launch_counts()
     got = fn.fused_tower(folded, obs)
     assert fn.fused_tower.launches == 1
@@ -260,15 +268,16 @@ def _int8_net(dev, size, blocks, channels, seed=0):
     return cfg, q, t8.pack_tower_bundle(cfg, q)
 
 
-# (board, blocks, channels, batch): a small net, a batch whose pixels are not
-# a multiple of the kernel's 128-pixel tile, and the main path's shape
-@pytest.mark.parametrize("size,blocks,channels,batch", [
-    (9, 2, 32, 11), (15, 2, 64, 40), (15, 6, 128, 256)])
-def test_int8_tower_kernel_equals_plain_and_int8_apply(size, blocks, channels,
+@pytest.mark.parametrize("batch", TOWER_BATCHES)
+@pytest.mark.parametrize("size", TOWER_BOARDS)
+@pytest.mark.parametrize("channels", [32, 64, 128])
+def test_int8_tower_kernel_equals_plain_and_int8_apply(channels, size,
                                                        batch):
     """Equal bit for bit: the integer sums are exact in any order and every
-    float step is the same IEEE operation (``csrc/int8_tower.cu``)."""
+    float step is the same IEEE operation (``csrc/int8_tower.cu``).  The
+    main path's net (6 blocks of 128) at 15x15; 2 blocks elsewhere."""
     dev = _card()
+    blocks = 6 if (size, channels) == (15, 128) else 2
     cfg, q, packed = _int8_net(dev, size, blocks, channels)
     env = make_env("gomoku", size)
     obs = env.encode(_random_states(env, batch, 2 * size, 3, dev))
@@ -301,6 +310,37 @@ def test_int8_tower_wrapper_refuses_bad_cuda_inputs():
     bad = dict(packed, block_w=packed["block_w"].float())
     with pytest.raises(TypeError):
         t8.int8_tower(bad, obs)
+
+
+def test_tower_wrappers_refuse_what_the_tiles_cannot_take():
+    """Limits of the padded-board tiles (``ops/conv_tile.py``): square
+    boards up to 21x21; and the stems' K (int8 at most 128 columns, bf16
+    9 * cin at most 64)."""
+    dev = _card()
+    for size, shape in ((22, (2, 22, 22, 3)), (9, (2, 9, 11, 3))):
+        cfg, q, packed = _int8_net(dev, size, 1, 32)
+        folded = fn.fold_bn(NetConfig(board_size=size,
+                                      action_size=size * size,
+                                      n_res_blocks=1, channels=64),
+                            *init_params(NetConfig(
+                                board_size=size, action_size=size * size,
+                                n_res_blocks=1, channels=64), 0), device=dev)
+        obs = torch.zeros(shape, device=dev)
+        with pytest.raises(ValueError, match="boards"):
+            t8.int8_tower(packed, obs)
+        with pytest.raises(ValueError, match="boards"):
+            fn.fused_tower(folded, obs)
+    wide = NetConfig(board_size=9, action_size=81, n_res_blocks=1,
+                     channels=64, in_channels=8)
+    folded = fn.fold_bn(wide, *init_params(wide, 0), device=dev)
+    with pytest.raises(ValueError, match="stem"):
+        fn.fused_tower(folded, torch.zeros((2, 9, 9, 8), device=dev))
+    cfg, q, packed = _int8_net(dev, 9, 1, 32)
+    big = dict(packed, stem_w=torch.zeros((32, 160), dtype=torch.int8,
+                                          device=dev),
+               inv_obs=torch.ones((16,), device=dev))
+    with pytest.raises(ValueError, match="stem"):
+        t8.int8_tower(big, torch.zeros((2, 9, 9, 16), device=dev))
 
 
 # (board, batch, k): a small board, a batch that is not a multiple of
