@@ -10,6 +10,7 @@ kernels.
 from alphazero_gomoku_tpu_torch.models.model import (  # noqa: F401
     INFERENCE_MODES,
     bundle_of,
+    fit_batch_stats,
     make_eval_fn,
     make_inference,
 )

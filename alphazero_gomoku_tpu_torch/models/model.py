@@ -47,6 +47,42 @@ def bundle_of(cfg: NetConfig, params: Params, batch_stats: Params,
     return net.to(dev).eval()
 
 
+def fit_batch_stats(cfg: NetConfig, params: Params, batch_stats: Params,
+                    obs, device=None) -> Params:
+    """``batch_stats`` with each BN's running mean and variance set to the
+    batch statistics of its input on ``obs`` (NHWC float32 boards), layer by
+    layer, as a trained net's are its data's; a new pytree.
+
+    With the initial stats (mean 0, var 1) a random net's activations grow
+    block by block, its heads are dead or saturated (the 15x15 6x128 net's
+    policy logits are 0 on most boards, its value 0 or +-1), and its folded
+    biases are all zero: a check of logits, values or biases holds little.
+    """
+    net = bundle_of(cfg, params, batch_stats, device=device)
+    x = torch.as_tensor(obs, device=next(net.parameters()).device)
+    fitted = {}
+
+    def fit(bn, x, key, into):
+        mean, var = x.mean(dim=(0, 2, 3)), x.var(dim=(0, 2, 3), unbiased=False)
+        bn.running_mean.copy_(mean)
+        bn.running_var.copy_(var)
+        into[key] = {"mean": mean.cpu().numpy(), "var": var.cpu().numpy()}
+        return bn(x)
+
+    with torch.no_grad():
+        h = torch.relu(fit(net.stem_bn, net.stem(x.permute(0, 3, 1, 2)),
+                           "stem_bn", fitted))
+        fitted["blocks"] = []
+        for blk in net.blocks:
+            st = {}
+            m = torch.relu(fit(blk.bn1, blk.conv1(h), "bn1", st))
+            h = torch.relu(fit(blk.bn2, blk.conv2(m), "bn2", st) + h)
+            fitted["blocks"].append(st)
+        fit(net.policy_bn, net.policy_conv(h), "policy_bn", fitted)
+        fit(net.value_bn, net.value_conv(h), "value_bn", fitted)
+    return fitted
+
+
 INFERENCE_MODES = ("f32", "bf16", "fused", "int8", "int8t")
 
 

@@ -11,8 +11,9 @@ with a plain C interface:
 ``SOURCE_FLAGS`` adds flags per source: the tree kernels and the int8
 tower build with ``--fmad=false``, so that no multiply and add are
 contracted into an FMA and they round as their plain versions do; the bf16
-tower, the rate probe (only tensor-core sums) and the slice write (its one
-multiply and add rounded apart by intrinsics) build without it.  No PyTorch
+tower, the rate probe (only tensor-core sums), the slice write (its one
+multiply and add rounded apart by intrinsics) and the latency probes (no
+arithmetic) build without it.  No PyTorch
 headers are included, so a build takes seconds.  The two towers include
 ``csrc/conv_tile.cuh``, their shared core, found beside the source.
 :func:`build_all` starts one ``nvcc`` per source at once.  The library name
@@ -49,6 +50,7 @@ SOURCE_FLAGS = {
     "int8_tower": ("--fmad=false",),
     "matmul_rate": (),
     "width1_slice": (),
+    "latency_floor": (),
 }
 
 

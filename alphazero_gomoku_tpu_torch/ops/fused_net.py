@@ -132,31 +132,40 @@ def fold_bn(cfg: NetConfig, params: Params, batch_stats: Params,
 # ----------------------------------------------------------------------
 # the tower: plain version and kernel
 # ----------------------------------------------------------------------
-def _conv3_plain(x: torch.Tensor, taps: torch.Tensor,
-                 bias: torch.Tensor) -> torch.Tensor:
+def _conv3_plain(x: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor,
+                 sum_dtype=torch.float32) -> torch.Tensor:
     """3x3 SAME conv of NHWC ``x`` as 9 shifted matmuls: the input rounded to
-    bf16, float32 products and sums, plus bias."""
+    bf16, products and sums in ``sum_dtype``, plus bias; the output rounded
+    once to float32 (nothing to round from float32 sums)."""
     b, h, w, cin = x.shape
-    xb = x.to(torch.bfloat16).to(torch.float32)
+    xb = x.to(torch.bfloat16).to(sum_dtype)
     pad = F.pad(xb, (0, 0, 1, 1, 1, 1))
     out = None
     for k in range(9):
         dr, dc = divmod(k, 3)
         piece = pad[:, dr:dr + h, dc:dc + w, :].reshape(b * h * w, cin)
-        term = piece @ taps[k].to(torch.float32)
+        term = piece @ taps[k].to(sum_dtype)
         out = term if out is None else out + term
-    return (out + bias).reshape(b, h, w, -1)
+    return (out + bias.to(sum_dtype)).to(torch.float32).reshape(b, h, w, -1)
 
 
-def fused_tower_plain(folded: Folded, obs: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch tower: ``obs [B, H, W, cin]`` -> float32 ``[B, H, W, C]``."""
+def fused_tower_plain(folded: Folded, obs: torch.Tensor,
+                      sum_dtype=torch.float32) -> torch.Tensor:
+    """Plain PyTorch tower: ``obs [B, H, W, cin]`` -> float32 ``[B, H, W, C]``.
+
+    ``sum_dtype`` float32 is the kernel's plain version.  float64 gives the
+    reference that a float32 order of summation is held against: the same
+    bf16 storage points, each conv's sums exact to float64 and its output
+    rounded once to float32; the residual add and ReLU stay float32.
+    """
     x = torch.relu(_conv3_plain(obs.to(torch.float32), folded["stem_w"],
-                                folded["stem_b"]))
+                                folded["stem_b"], sum_dtype))
     for i in range(folded["block_w"].shape[0]):
         r = x
         y = torch.relu(_conv3_plain(x, folded["block_w"][i, 0],
-                                    folded["block_b"][i, 0]))
-        z = _conv3_plain(y, folded["block_w"][i, 1], folded["block_b"][i, 1])
+                                    folded["block_b"][i, 0], sum_dtype))
+        z = _conv3_plain(y, folded["block_w"][i, 1], folded["block_b"][i, 1],
+                         sum_dtype)
         x = torch.relu(z + r)
     return x
 
@@ -278,12 +287,15 @@ def fused_predict(cfg: NetConfig, folded: Folded, obs: torch.Tensor):
         return _heads(cfg, folded, fused_tower(folded, obs.to(torch.float32)))
 
 
-def folded_apply_plain(cfg: NetConfig, folded: Folded, obs: torch.Tensor):
+def folded_apply_plain(cfg: NetConfig, folded: Folded, obs: torch.Tensor,
+                       sum_dtype=torch.float32):
     """:func:`fused_predict` with the plain tower on any device: the kernel's
     plain version, and the counterpart of the JAX ``folded_apply_reference``
-    with each conv input rounded to bf16 as the kernel does."""
+    with each conv input rounded to bf16 as the kernel does.  With
+    ``sum_dtype`` float64 the tower's sums are float64
+    (:func:`fused_tower_plain`); the heads are float32 either way."""
     with torch.no_grad():
-        return _heads(cfg, folded, fused_tower_plain(folded, obs))
+        return _heads(cfg, folded, fused_tower_plain(folded, obs, sum_dtype))
 
 
 def make_fused_eval_fn(cfg: NetConfig):

@@ -48,8 +48,9 @@ SL_N, SL_W, SL_P, SL_C, SL_META = 0, 1, 2, 3, 4
 # action index when no score equals the maximum (only with NaN scores); the
 # JAX kernel's sentinel
 NO_ACTION = 1 << 30
-# the Gumbel kernel keeps each thread's columns in registers: at most 16 per
-# thread of a warp (csrc/tree_kernels.cu, GUMBEL_COLS)
+# the walk kernels keep each thread's columns in registers: at most 16 per
+# thread of a warp (csrc/tree_kernels.cu, PUCT_MAX_COLS and GUMBEL_COLS)
+PUCT_MAX_ACTIONS = 16 * 32
 GUMBEL_MAX_ACTIONS = 16 * 32
 
 
@@ -205,6 +206,10 @@ def select_walk_plain(packed: torch.Tensor, layout: PackedLayout,
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device):
+    # every wrapper call checks each input: the passing case in one test
+    if (t.dtype == dtype and t.shape == tuple(shape) and t.device == device
+            and t.is_contiguous()):
+        return
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -227,12 +232,15 @@ def _check_packed(packed: torch.Tensor, layout: PackedLayout):
     return b
 
 
+_LIB = None
+
+
 def _library() -> ctypes.CDLL:
-    lib = _build.build("tree_kernels").lib
-    if not getattr(lib, "_argtypes_set", False):
+    global _LIB
+    if _LIB is None:
+        lib = _build.build("tree_kernels").lib
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.select_walk_launch.argtypes = [p, i, i, i, i, f, i, i,
-                                           p, p, p, p, p, p]
+        lib.select_walk_launch.argtypes = [p, i, i, i, i, f, i, i, p, p]
         lib.select_walk_launch.restype = i
         lib.backup_paths_launch.argtypes = [p, i, i, i, i, i, p, p, p, p, p,
                                             p, p, i, i, p]
@@ -240,13 +248,26 @@ def _library() -> ctypes.CDLL:
         lib.gumbel_select_walk_launch.argtypes = [p, p, i, i, i, i, i, f, f,
                                                   i, p, p, p, p, p, p]
         lib.gumbel_select_walk_launch.restype = i
-        lib._argtypes_set = True
-    return lib
+        _LIB = lib
+    return _LIB
 
 
 def _raise_on(err: int, what: str):
     if err != 0:
         raise RuntimeError(f"{what} launch failed with CUDA error {err}")
+
+
+def _launch(dev: torch.device, launch, *args) -> int:
+    """``launch(*args, stream)`` on ``dev``'s current stream, read on every
+    call (as a CUDA graph's capture needs) by the raw-pointer query that
+    PyTorch's own generated kernels use: ``torch.cuda.current_stream(dev)``
+    builds a ``Stream`` object, a few microseconds a call.  The runtime
+    launches on the current device, so ``dev`` is entered only when it is
+    not that one."""
+    if dev.index == torch.cuda.current_device():
+        return launch(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    with torch.cuda.device(dev):
+        return launch(*args, torch._C._cuda_getCurrentRawStream(dev.index))
 
 
 def select_walk(packed: torch.Tensor, layout: PackedLayout, cpuct: float,
@@ -263,34 +284,36 @@ def select_walk(packed: torch.Tensor, layout: PackedLayout, cpuct: float,
         i32 (-1 at and beyond ``path_len``) and ``path_len [B]`` i32 for the
         backup.
 
-    CPU tensors take :func:`select_walk_plain`; CUDA tensors the kernel.
+    CPU tensors take :func:`select_walk_plain`; CUDA tensors the kernel
+    (at most ``PUCT_MAX_ACTIONS`` actions), whose five outputs are views of
+    one new int32 buffer, the rows of ``[3 + 2 * depth, B]``: leaf, action,
+    path_len, path_nodes, path_actions.
     """
     b = _check_packed(packed, layout)
     if depth_limit < 1:
         raise ValueError(f"depth_limit={depth_limit} < 1")
-    if packed.device.type == "cpu":
+    dev = packed.device
+    if dev.type == "cpu":
         return select_walk_plain(packed, layout, cpuct, depth_limit,
                                  fpu_parent)
-    if packed.device.type != "cuda":
-        raise ValueError(f"select_walk: unsupported device {packed.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"select_walk: unsupported device {dev}")
+    if layout.num_actions > PUCT_MAX_ACTIONS:
+        raise ValueError(f"select_walk takes at most {PUCT_MAX_ACTIONS} "
+                         f"actions, got {layout.num_actions}")
     lib = _library()
-    dev = packed.device
-
-    def out(*shape):
-        return torch.empty(shape, dtype=torch.int32, device=dev)
-
-    leaf, action, plen = out(b), out(b), out(b)
-    pnodes, pacts = out(depth_limit, b), out(depth_limit, b)
-    with torch.cuda.device(dev):
-        err = lib.select_walk_launch(
-            packed.data_ptr(), b, layout.n_nodes, layout.seg,
-            layout.num_actions, float(cpuct), depth_limit, int(fpu_parent),
-            leaf.data_ptr(), action.data_ptr(), pnodes.data_ptr(),
-            pacts.data_ptr(), plen.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+    rows = depth_limit * b
+    out = torch.empty(3 * b + 2 * rows, dtype=torch.int32, device=dev)
+    err = _launch(dev, lib.select_walk_launch, packed.data_ptr(), b,
+                  layout.n_nodes, layout.seg, layout.num_actions,
+                  float(cpuct), depth_limit, int(fpu_parent), out.data_ptr())
     _raise_on(err, "select_walk")
     select_walk.launches += 1
-    return leaf, action, pnodes, pacts, plen
+    # one split is cheaper on the host than a view per output
+    leaf, action, plen, pnodes, pacts = out.split_with_sizes(
+        (b, b, b, rows, rows))
+    return (leaf, action, pnodes.view(depth_limit, b),
+            pacts.view(depth_limit, b), plen)
 
 
 select_walk.launches = 0
@@ -449,13 +472,12 @@ def gumbel_select_walk(packed: torch.Tensor, root_actions: torch.Tensor,
 
     leaf, action, plen = out(lanes), out(lanes), out(lanes)
     pnodes, pacts = out(depth_limit, lanes), out(depth_limit, lanes)
-    with torch.cuda.device(dev):
-        err = lib.gumbel_select_walk_launch(
-            packed.data_ptr(), root_actions.data_ptr(), b, fan,
-            layout.n_nodes, layout.seg, layout.num_actions, float(c_visit),
-            float(c_scale), depth_limit, leaf.data_ptr(), action.data_ptr(),
-            pnodes.data_ptr(), pacts.data_ptr(), plen.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+    err = _launch(dev, lib.gumbel_select_walk_launch, packed.data_ptr(),
+                  root_actions.data_ptr(), b, fan, layout.n_nodes,
+                  layout.seg, layout.num_actions, float(c_visit),
+                  float(c_scale), depth_limit, leaf.data_ptr(),
+                  action.data_ptr(), pnodes.data_ptr(), pacts.data_ptr(),
+                  plen.data_ptr())
     _raise_on(err, "gumbel_select_walk")
     gumbel_select_walk.launches += 1
     return leaf, action, pnodes, pacts, plen
@@ -587,15 +609,16 @@ def backup_paths(packed: torch.Tensor, path_nodes: torch.Tensor,
                                   signed_priors, done, mode)
     if dev.type != "cuda":
         raise ValueError(f"backup_paths: unsupported device {dev}")
+    if packed.data_ptr() % 16:
+        raise ValueError("packed must be 16-byte aligned (the slot tile is "
+                         "written in 16-byte stores)")
     lib = _library()
-    with torch.cuda.device(dev):
-        err = lib.backup_paths_launch(
-            packed.data_ptr(), b, layout.n_nodes, layout.seg,
-            layout.num_actions, d, path_nodes.data_ptr(),
-            path_actions.data_ptr(), path_len.data_ptr(), values.data_ptr(),
-            expanding.data_ptr(), signed_priors.data_ptr(), done.data_ptr(),
-            slot, BACKUP_MODES.index(mode),
-            torch.cuda.current_stream(dev).cuda_stream)
+    err = _launch(dev, lib.backup_paths_launch, packed.data_ptr(), b,
+                  layout.n_nodes, layout.seg, layout.num_actions, d,
+                  path_nodes.data_ptr(), path_actions.data_ptr(),
+                  path_len.data_ptr(), values.data_ptr(),
+                  expanding.data_ptr(), signed_priors.data_ptr(),
+                  done.data_ptr(), slot, BACKUP_MODES.index(mode))
     _raise_on(err, "backup_paths")
     backup_paths.launches += 1
     backup_paths.mode_launches[mode] += 1

@@ -34,6 +34,13 @@ weights made from ``--seed`` (their BN stats fitted to random boards,
   - the width-1 slice-write repro (``repro/width1_slice_write.py``'s
     ``main``, both variants): kernel ``width1_slice_write``.
 
+``select_walk`` and ``backup_paths`` (all three modes) are held against
+their plain versions and timed on trees of 64 simulations and on PUCT@400's
+own tree as its last simulation walks it (399 simulations; k-leaf 396),
+each beside its byte bound and a floor: an empty kernel's graph-replay time
+plus the longest path times one dependent L2 load, both measured in the run
+(``tools/latency_floor.py``).
+
 Each path's launch counts are set to 0 just before it and read just after;
 every kernel a path does not name must launch 0 times on it.  The k-leaf
 search and the reuse searches (with ``packed_advance_root`` between moves)
@@ -61,12 +68,12 @@ import sys
 import time
 
 import torch
-import torch.nn.functional as F
 
 from alphazero_gomoku_tpu_torch.games import make_env
 from alphazero_gomoku_tpu_torch.models import (
     NetConfig,
     bundle_of,
+    fit_batch_stats,
     init_params,
     make_eval_fn,
 )
@@ -91,6 +98,7 @@ from alphazero_gomoku_tpu_torch.search.tree_packed import (
     run_mcts_packed_with_tree,
 )
 from alphazero_gomoku_tpu_torch.selfplay import SelfPlayConfig, play_games
+from alphazero_gomoku_tpu_torch.tools import latency_floor as lf
 from alphazero_gomoku_tpu_torch.tools import matmul_rate as mr
 
 BOARD = 15
@@ -123,10 +131,10 @@ FAN = 16             # lanes per tree of the fan-out walk held against plain
 # over the 13 convs.  Held on the tower, the kernel's output: within two bf16
 # steps of its largest value.  On an H100 over seeds 0-7 the kernel read
 # 1.00-1.26 steps from the plain version, and the plain version 0.88-1.19
-# from the same tower with float64 sums (``fused_tower_f64``, printed each
-# run): any float32 order lands about a step away.  The heads, the same
-# float32 ops on both sides, carry the tower's difference on to logits and
-# value, which are printed.
+# from the same tower with float64 sums (``fused_tower_plain(..., float64)``,
+# printed each run): any float32 order lands about a step away.  The heads,
+# the same float32 ops on both sides, carry the tower's difference on to
+# logits and value, which are printed.
 FUSED_TOWER_STEPS = 2
 # the fused net against the float32 ResNet (tests/test_fused_net.py:75-85)
 BF16_VS_F32_TOL = 0.05
@@ -241,6 +249,89 @@ def graph_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def latency_floor():
+    """An empty kernel's graph-replay ms and one dependent L2 load's ms, the
+    two parts of the tree kernels' floor (``tools/latency_floor.py``)."""
+    floor = {"empty_ms": lf.empty_ms(), "l2_load_ms": lf.l2_load_ms()}
+    log(f"latency floor: empty kernel {floor['empty_ms']:.4f} ms (CUDA graph "
+        f"replay), one dependent L2 load {floor['l2_load_ms'] * 1e6:.1f} ns")
+    return floor
+
+
+def path_stats(plen: torch.Tensor, floor) -> dict:
+    """``path_len``'s mean and maximum, and the floor: an empty launch plus
+    one dependent L2 load for each hop of the longest path."""
+    longest = int(plen.max())
+    return dict(path_len_mean=float(plen.float().mean()),
+                path_len_max=longest,
+                floor_ms=lf.floor_ms(longest, floor["empty_ms"],
+                                     floor["l2_load_ms"]))
+
+
+def hold_select(tree, layout, cpuct, depth, floor):
+    """``select_walk`` against its plain version on ``tree`` (every output,
+    tolerance 0), then its times: CUDA-graph replay, one eager wrapper call,
+    the plain version; its bound and floor.  Returns ``(outputs, row)``."""
+    sel = tk.select_walk(tree, layout, cpuct, depth)
+    plain = tk.select_walk_plain(tree, layout, cpuct, depth)
+    for name, k, p in zip(("leaf", "action", "path_nodes", "path_actions",
+                           "path_len"), sel, plain):
+        if not torch.equal(k, p):
+            raise AssertionError(f"select_walk {name}: kernel != plain "
+                                 f"(tolerance 0)")
+
+    def call():
+        return tk.select_walk(tree, layout, cpuct, depth)
+
+    row = dict(max_abs_err=max_abs_err(sel, plain), ms=graph_ms(call, 50),
+               eager_ms=cuda_ms(call, 50),
+               plain_ms=cuda_ms(lambda: tk.select_walk_plain(
+                   tree, layout, cpuct, depth), reps=10, warmup=1),
+               **path_stats(sel[4], floor))
+    row["bound_ms"], row["bound_by"] = select_bound(layout, sel, depth)
+    log(f"select_walk: kernel == plain on every output, tolerance 0; "
+        f"{timing_summary(row)}")
+    return sel, row
+
+
+def hold_backup(tree, bargs, mode, floor):
+    """``backup_paths`` in ``mode`` against its plain version on a copy of
+    ``tree`` (the whole packed tree, tolerance 0), then its times on a
+    scratch copy (repeated backups keep the path valid), bound and floor.
+    Returns ``(the kernel's tree, row)``."""
+    got = tk.backup_paths(tree.clone(), *bargs, mode=mode)
+    want = tk.backup_paths_plain(tree.clone(), *bargs, mode=mode)
+    if not torch.equal(got, want):
+        raise AssertionError(f"backup_paths {mode}: kernel != plain "
+                             f"(tolerance 0)")
+    if torch.equal(got, tree):
+        raise AssertionError(f"backup_paths {mode} changed nothing")
+    scratch = tree.clone()
+
+    def call():
+        return tk.backup_paths(scratch, *bargs, mode=mode)
+
+    plen, expanding = bargs[2], bargs[4]
+    row = dict(max_abs_err=float((got - want).abs().max()),
+               ms=graph_ms(call, 50), eager_ms=cuda_ms(call, 50),
+               plain_ms=cuda_ms(lambda: tk.backup_paths_plain(
+                   scratch, *bargs, mode=mode), reps=10, warmup=1),
+               **path_stats(plen, floor))
+    row["bound_ms"], row["bound_by"] = backup_bound(bargs[6], plen,
+                                                    expanding, mode)
+    log(f"backup_paths {mode}: kernel == plain on the whole packed tree, "
+        f"tolerance 0; {timing_summary(row)}")
+    return got, row
+
+
+def timing_summary(row) -> str:
+    return (f"path_len mean {row['path_len_mean']:.2f} max "
+            f"{row['path_len_max']}; kernel {row['ms']:.4f} ms (CUDA graph "
+            f"replay; eager wrapper call {row['eager_ms']:.4f} ms), plain "
+            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms "
+            f"({row['bound_by']}), floor {row['floor_ms']:.4f} ms")
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -258,34 +349,14 @@ def phase_gen(seed: int, tag: int, dev) -> torch.Generator:
 
 def smoke_weights(cfg: NetConfig, seed: int, dev):
     """``(params, batch_stats)`` of the smoke's net: ``init_params(seed)``
-    with each BN's running mean and variance set to the batch statistics of
-    its input on ``random_calib_obs`` boards (seed + 1), layer by layer, as a
-    trained net's are its data's.  With the initial stats (mean 0, var 1)
-    the random tower's outputs grow block by block and its heads are dead or
-    saturated: the 15x15 6x128 net's policy logits are exactly 0 on most
-    boards, its value 0 or +-1, so that a check of logits or values would
-    hold little."""
+    with each BN's running mean and variance fitted to its input on
+    ``random_calib_obs`` boards (seed + 1), as a trained net's are its
+    data's (``fit_batch_stats``: with the initial stats the 6x128 net's heads
+    are dead or saturated, so that a check of logits or values would hold
+    little)."""
     params, stats = init_params(cfg, seed)
-    net = bundle_of(cfg, params, stats, device=dev)
-    obs = torch.from_numpy(q8.random_calib_obs(cfg, seed=seed + 1)).to(dev)
-
-    def fit(bn, x, st):
-        mean, var = x.mean(dim=(0, 2, 3)), x.var(dim=(0, 2, 3), unbiased=False)
-        bn.running_mean.copy_(mean)
-        bn.running_var.copy_(var)
-        st["mean"] = mean.cpu().numpy()
-        st["var"] = var.cpu().numpy()
-        return bn(x)
-
-    with torch.no_grad():
-        h = torch.relu(fit(net.stem_bn, net.stem(obs.permute(0, 3, 1, 2)),
-                           stats["stem_bn"]))
-        for blk, st in zip(net.blocks, stats["blocks"]):
-            m = torch.relu(fit(blk.bn1, blk.conv1(h), st["bn1"]))
-            h = torch.relu(fit(blk.bn2, blk.conv2(m), st["bn2"]) + h)
-        fit(net.policy_bn, net.policy_conv(h), stats["policy_bn"])
-        fit(net.value_bn, net.value_conv(h), stats["value_bn"])
-    return params, stats
+    obs = q8.random_calib_obs(cfg, seed=seed + 1)
+    return params, fit_batch_stats(cfg, params, stats, obs, device=dev)
 
 
 def random_states(env, batch, plies, generator, dev):
@@ -434,7 +505,8 @@ def main() -> int:
 
     with Phase("2 build (one nvcc per source, at once)"):
         libs = _build.build_all(["tree_kernels", "fused_net", "int8_tower",
-                                 "matmul_rate", "width1_slice"])
+                                 "matmul_rate", "width1_slice",
+                                 "latency_floor"])
         for built in libs.values():
             how = "reused an earlier build" if built.reused else "built"
             log(f"{how}: {built.path.name}, nvcc {built.seconds:.2f} s")
@@ -459,83 +531,40 @@ def main() -> int:
                                max_nodes=MAIN_MCTS.node_capacity)
     layout = tk.packed_layout(env.num_actions, grow.node_capacity)
     depth = grow.depth_limit
-    with Phase(f"3 kernels against their plain versions (batch {BATCH}, "
-               f"{layout.n_nodes} nodes, seg {layout.seg}, depth cap {depth})"):
+    with Phase(f"3 select_walk and backup_paths against their plain "
+               f"versions (batch {BATCH}, {layout.n_nodes} nodes, seg "
+               f"{layout.seg}, depth cap {depth}), on trees of {GROW_SIMS} "
+               f"and {SIMS - 1} simulations"):
+        floor = latency_floor()
         gen = phase_gen(args.seed, 3, dev)
         states = random_states(env, BATCH, 4, gen, dev)
         moves = torch.full((BATCH,), 4, dtype=torch.int32, device=dev)
-        tree = run_mcts_packed_with_tree(env, grow, eval_fn, net, states,
-                                         moves, gen)[2].packed
-        log(f"grew the tree: {grow.n_simulations} simulations, packed "
-            f"{tuple(tree.shape)}")
-
-        sel = tk.select_walk(tree, layout, grow.cpuct, depth)
-        sel_plain = tk.select_walk_plain(tree, layout, grow.cpuct, depth)
-        for name, k, p in zip(("leaf", "action", "path_nodes",
-                               "path_actions", "path_len"), sel, sel_plain):
-            if not torch.equal(k, p):
-                raise AssertionError(f"select_walk {name}: kernel != plain "
-                                 f"(tolerance 0)")
-        err = max_abs_err(sel, sel_plain)
-        plen = sel[4]
-        log(f"select_walk: kernel == plain on every output, tolerance 0 "
-            f"(max abs err "
-            f"{err}); path_len mean {plen.float().mean():.2f} max "
-            f"{int(plen.max())}")
-        def select_call():
-            return tk.select_walk(tree, layout, grow.cpuct, depth)
-
-        ms = graph_ms(select_call, reps=50)
-        eager_ms = cuda_ms(select_call, reps=50)
-        plain_ms = cuda_ms(lambda: tk.select_walk_plain(
-            tree, layout, grow.cpuct, depth), reps=10, warmup=1)
-        bound_ms, bound_by = select_bound(layout, sel, depth)
-        rows["select_walk"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                   bound_ms=bound_ms, bound_by=bound_by,
-                                   library_ms=None)
-        log(f"select_walk: kernel {ms:.4f} ms (CUDA graph replay; eager "
-            f"wrapper call {eager_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
-            f"{bound_ms:.6f} ms ({bound_by}); no single PyTorch call computes "
-            f"the walk, so library_ms is null")
-
-        leaf, action, pnodes, pacts, plen = sel
-        values = torch.rand(BATCH, generator=gen, device=dev) * 2 - 1
-        legal = torch.rand((BATCH, env.num_actions), generator=gen,
-                           device=dev) < 0.9
-        priors = torch.where(legal, torch.rand(legal.shape, generator=gen,
-                                               device=dev), -1.0)
-        done = torch.rand(BATCH, generator=gen, device=dev) < 0.1
-        expanding = action >= 0
-        slot = grow.n_simulations + 1
-        bargs = (pnodes, pacts, plen, values, expanding, slot, layout, priors,
-                 done)
-        got = tk.backup_paths(tree.clone(), *bargs)
-        want = tk.backup_paths_plain(tree.clone(), *bargs)
-        if not torch.equal(got, want):
-            raise AssertionError("backup_paths: kernel != plain (tolerance 0)")
-        if torch.equal(got, tree):
-            raise AssertionError("backup_paths changed nothing")
-        err = float((got - want).abs().max())
-        log(f"backup_paths: kernel == plain on the whole packed tree, "
-            f"tolerance 0 (max abs err {err})")
-        # repeated backups on one scratch tree: the path stays valid
-        scratch = tree.clone()
-        def backup_call():
-            return tk.backup_paths(scratch, *bargs)
-
-        ms = graph_ms(backup_call, reps=50)
-        eager_ms = cuda_ms(backup_call, reps=50)
-        plain_ms = cuda_ms(lambda: tk.backup_paths_plain(scratch, *bargs),
-                           reps=10, warmup=1)
-        bound_ms, bound_by = backup_bound(layout, plen, expanding)
-        rows["backup_paths"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                    bound_ms=bound_ms, bound_by=bound_by,
-                                    library_ms=None)
-        log(f"backup_paths: kernel {ms:.4f} ms (CUDA graph replay; eager "
-            f"wrapper call {eager_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
-            f"{bound_ms:.6f} ms ({bound_by}); no single PyTorch call computes "
-            f"the backup, so library_ms is null")
-        del tree, scratch, got, want
+        # GROW_SIMS, and PUCT@400's own tree as its last simulation walks it
+        for sims in (GROW_SIMS, SIMS - 1):
+            cfg = dataclasses.replace(grow, n_simulations=sims)
+            tree = run_mcts_packed_with_tree(env, cfg, eval_fn, net, states,
+                                             moves, gen)[2].packed
+            log(f"grew the tree: {sims} simulations, packed "
+                f"{tuple(tree.shape)}")
+            sel, walk = hold_select(tree, layout, grow.cpuct, depth, floor)
+            _, action, pnodes, pacts, plen = sel
+            values = torch.rand(BATCH, generator=gen, device=dev) * 2 - 1
+            legal = torch.rand((BATCH, env.num_actions), generator=gen,
+                               device=dev) < 0.9
+            priors = torch.where(legal, torch.rand(legal.shape, generator=gen,
+                                                   device=dev), -1.0)
+            done = torch.rand(BATCH, generator=gen, device=dev) < 0.1
+            bargs = (pnodes, pacts, plen, values, action >= 0, sims + 1,
+                     layout, priors, done)
+            _, back = hold_backup(tree, bargs, "backup", floor)
+            for name, t in (("select_walk", walk), ("backup_paths", back)):
+                if sims == GROW_SIMS:
+                    rows[name].update(t, library_ms=None)
+                else:
+                    rows[name][f"tree{SIMS}"] = t
+            del tree
+        log("no single PyTorch call computes the walk or the backup, so "
+            "library_ms is null")
 
     with Phase(f"4 search pi, kernels against plain (batch {PI_BATCH}, "
                f"{PI_SIMS} sims, 6x128, cudnn deterministic)"):
@@ -719,16 +748,21 @@ def gumbel_phases(args, env, net_cfg, weights, net, dev, rows, smi):
                 "value": float((value - plain_value).abs().max())}
         step = 2.0 ** -8 * float(tower_plain.abs().max())
         with torch.no_grad():
-            tower_f64 = fused_tower_f64(folded, obs)
-            f64_logits, f64_value = fn._heads(net_cfg, folded, tower_f64)
+            tower_f64 = fn.fused_tower_plain(folded, obs, torch.float64)
+        f64_logits, f64_value = fn.folded_apply_plain(net_cfg, folded, obs,
+                                                      torch.float64)
         f64_errs = {"tower": float((tower_plain - tower_f64).abs().max()),
                     "logits": float((plain_logits - f64_logits).abs().max()),
                     "value": float((plain_value - f64_value).abs().max())}
+        k64_errs = {"tower": float((tower - tower_f64).abs().max()),
+                    "logits": float((logits - f64_logits).abs().max()),
+                    "value": float((value - f64_value).abs().max())}
         log(f"fused_tower: max abs err against plain {errs}, "
             f"{errs['tower'] / step:.3f} bf16 steps of the tower's largest "
             f"value ({float(tower_plain.abs().max()):.3f}); tolerance "
-            f"{FUSED_TOWER_STEPS} steps.  The plain version against float64 "
-            f"sums: {f64_errs}, {f64_errs['tower'] / step:.3f} steps")
+            f"{FUSED_TOWER_STEPS} steps.  Against float64 sums: the plain "
+            f"version {f64_errs}, {f64_errs['tower'] / step:.3f} steps; the "
+            f"kernel {k64_errs}, {k64_errs['tower'] / step:.3f} steps")
         if not errs["tower"] <= FUSED_TOWER_STEPS * step:
             raise AssertionError(f"fused_tower: max abs err {errs['tower']} > "
                                  f"{FUSED_TOWER_STEPS} bf16 steps ({step})")
@@ -1027,65 +1061,46 @@ def extension_phases(args, env, net_cfg, weights, net, dev, rows, smi,
     layout = tk.packed_layout(env.num_actions, grow.node_capacity)
     depth = grow.depth_limit
     with Phase(f"15 backup_paths modes vl and finalize against their plain "
-               f"versions (batch {BATCH}, tree of {GROW_SIMS} k-leaf sims, "
-               f"k={KLEAF}, {layout.n_nodes} nodes)"):
+               f"versions (batch {BATCH}, trees of {GROW_SIMS} and "
+               f"{SIMS - KLEAF} k-leaf sims, k={KLEAF}, {layout.n_nodes} "
+               f"nodes)"):
+        floor = latency_floor()
         gen = phase_gen(args.seed, 15, dev)
         states = random_states(env, BATCH, 4, gen, dev)
         moves = torch.full((BATCH,), 4, dtype=torch.int32, device=dev)
-        _, _, grown = run_mcts_packed_with_tree(env, grow, eval_fn, net,
-                                                states, moves, gen)
-        tree = grown.packed
-        _, action, pnodes, pacts, plen = tk.select_walk(tree, layout,
-                                                        grow.cpuct, depth)
-        expanding = action >= 0
-        slot = GROW_SIMS + 1
-        legal = torch.rand((BATCH, env.num_actions), generator=gen,
-                           device=dev) < 0.9
-        placeholder = torch.where(
-            legal, 1.0 / legal.sum(dim=1, keepdim=True), -1.0)
-        priors = torch.where(legal, torch.rand(legal.shape, generator=gen,
-                                               device=dev), -1.0)
-        values = torch.rand(BATCH, generator=gen, device=dev) * 2 - 1
-        done = torch.rand(BATCH, generator=gen, device=dev) < 0.1
-        zeros = torch.zeros(BATCH, device=dev)
-        mode_args = {
-            "vl": (pnodes, pacts, plen, zeros, expanding, slot, layout,
-                   placeholder, done),
-            "finalize": (pnodes, pacts, plen, values, expanding, slot,
-                         layout, priors, done)}
-        for mode, bargs in mode_args.items():
-            got = tk.backup_paths(tree.clone(), *bargs, mode=mode)
-            want = tk.backup_paths_plain(tree.clone(), *bargs, mode=mode)
-            if not torch.equal(got, want):
-                raise AssertionError(f"backup_paths {mode}: kernel != plain "
-                                     f"(tolerance 0)")
-            if torch.equal(got, tree):
-                raise AssertionError(f"backup_paths {mode} changed nothing")
-            err = float((got - want).abs().max())
-            # finalize reads the tile vl left: the macro step's order
-            tree = got
-            scratch = tree.clone()
-
-            def call(bargs=bargs, mode=mode):
-                return tk.backup_paths(scratch, *bargs, mode=mode)
-
-            ms = graph_ms(call, reps=50)
-            eager_ms = cuda_ms(call, reps=50)
-            plain_ms = cuda_ms(lambda bargs=bargs, mode=mode:
-                               tk.backup_paths_plain(scratch, *bargs,
-                                                     mode=mode),
-                               reps=10, warmup=1)
-            bound_ms, bound_by = backup_bound(layout, plen, expanding, mode)
-            rows[f"backup_paths_{mode}"].update(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
-            log(f"backup_paths {mode}: kernel == plain on the whole packed "
-                f"tree, tolerance 0 (max abs err {err}); kernel {ms:.4f} ms "
-                f"(CUDA graph replay; eager wrapper call {eager_ms:.4f} ms), "
-                f"plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
-                f"({bound_by}); no single PyTorch call computes the backup, "
-                f"so library_ms is null")
-        del tree, scratch, grown
+        # GROW_SIMS, and PUCT@400 k-leaf's own tree at its last macro step
+        for sims in (GROW_SIMS, SIMS - KLEAF):
+            cfg = dataclasses.replace(grow, n_simulations=sims)
+            tree = run_mcts_packed_with_tree(env, cfg, eval_fn, net, states,
+                                             moves, gen)[2].packed
+            _, action, pnodes, pacts, plen = tk.select_walk(
+                tree, layout, grow.cpuct, depth)
+            expanding = action >= 0
+            slot = sims + 1
+            legal = torch.rand((BATCH, env.num_actions), generator=gen,
+                               device=dev) < 0.9
+            placeholder = torch.where(
+                legal, 1.0 / legal.sum(dim=1, keepdim=True), -1.0)
+            priors = torch.where(legal, torch.rand(legal.shape, generator=gen,
+                                                   device=dev), -1.0)
+            values = torch.rand(BATCH, generator=gen, device=dev) * 2 - 1
+            done = torch.rand(BATCH, generator=gen, device=dev) < 0.1
+            zeros = torch.zeros(BATCH, device=dev)
+            mode_args = {
+                "vl": (pnodes, pacts, plen, zeros, expanding, slot, layout,
+                       placeholder, done),
+                "finalize": (pnodes, pacts, plen, values, expanding, slot,
+                             layout, priors, done)}
+            for mode, bargs in mode_args.items():
+                # finalize reads the tile vl left: the macro step's order
+                tree, row = hold_backup(tree, bargs, mode, floor)
+                if sims == GROW_SIMS:
+                    rows[f"backup_paths_{mode}"].update(row, library_ms=None)
+                else:
+                    rows[f"backup_paths_{mode}"][f"tree{SIMS}"] = row
+            del tree
+        log("no single PyTorch call computes the backup, so library_ms is "
+            "null")
 
     params, stats = weights
     folded = fn.fold_bn(net_cfg, params, stats, device=dev)
@@ -1372,26 +1387,6 @@ def reuse_trace(env, cfg, eval_fn, bundle, states, moves, generator, ops):
         states = env.step_safe(states, act)
         moves = moves + 1
     return out
-
-
-def fused_tower_f64(folded, obs: torch.Tensor) -> torch.Tensor:
-    """``fused_tower_plain`` with its sums in float64, each conv's output
-    rounded once to float32: how far a float32 summation order alone moves
-    the tower."""
-
-    def conv(x, taps, bias):
-        b, h, w, cin = x.shape
-        pad = F.pad(x.to(torch.bfloat16).double(), (0, 0, 1, 1, 1, 1))
-        out = sum(pad[:, k // 3:k // 3 + h, k % 3:k % 3 + w, :]
-                  .reshape(b * h * w, cin) @ taps[k].double()
-                  for k in range(9))
-        return (out + bias.double()).float().reshape(b, h, w, -1)
-
-    x = torch.relu(conv(obs.float(), folded["stem_w"], folded["stem_b"]))
-    for w, bias in zip(folded["block_w"], folded["block_b"]):
-        y = torch.relu(conv(x, w[0], bias[0]))
-        x = torch.relu(conv(y, w[1], bias[1]) + x)
-    return x
 
 
 def correlation(x: torch.Tensor, y: torch.Tensor) -> float:

@@ -17,6 +17,7 @@ from alphazero_gomoku_tpu_torch.games import make_env
 from alphazero_gomoku_tpu_torch.models import (
     NetConfig,
     bundle_of,
+    fit_batch_stats,
     init_params,
     make_eval_fn,
 )
@@ -37,6 +38,8 @@ from alphazero_gomoku_tpu_torch.search.tree_packed import (
     run_mcts_packed_with_tree,
 )
 from alphazero_gomoku_tpu_torch.tools import matmul_rate as mr
+
+from torch_port_edges import DEPTH, EDGE_CASES, N_NODES, edge_paths, edge_tree
 
 pytestmark = pytest.mark.cuda
 
@@ -112,6 +115,80 @@ def test_backup_paths_kernel_equals_plain():
     assert not torch.equal(got, packed)
 
 
+# the edge trees and paths of tests/torch_port_edges.py (held against the
+# JAX kernels on the CPU by tests/test_torch_port_tree_edges.py): a batch of
+# one, a ragged batch, the main path's 256 and the k-leaf path's 1024 lanes;
+# boards of 81, 225 and 361 actions (seg 128, 256 and 384)
+EDGE_BATCHES = (1, 11, 256, 1024)
+EDGE_SIZES = (9, 15, 19)
+
+
+@pytest.mark.parametrize("batch", EDGE_BATCHES)
+@pytest.mark.parametrize("case", EDGE_CASES)
+@pytest.mark.parametrize("mode", tk.BACKUP_MODES)
+def test_backup_paths_kernel_equals_plain_on_edge_paths(mode, case, batch):
+    dev = _card()
+    for size in EDGE_SIZES:
+        seed = 100 * size + EDGE_CASES.index(case)
+        packed = torch.from_numpy(edge_tree(batch, size, seed)).to(dev)
+        p = edge_paths(case, batch, size, seed + 1)
+        args = [torch.from_numpy(p[k]).to(dev) for k in (
+            "path_nodes", "path_actions", "path_len", "values", "expanding")]
+        args += [p["slot"], tk.packed_layout(size * size, N_NODES),
+                 torch.from_numpy(p["priors"]).to(dev),
+                 torch.from_numpy(p["done"]).to(dev)]
+        tk.reset_launch_counts()
+        got = tk.backup_paths(packed.clone(), *args, mode=mode)
+        want = tk.backup_paths_plain(packed.clone(), *args, mode=mode)
+        torch.cuda.synchronize()
+        assert tk.backup_paths.mode_launches[mode] == 1
+        assert torch.equal(got, want), size
+        assert not torch.equal(got, packed)
+
+
+@pytest.mark.parametrize("batch", EDGE_BATCHES)
+@pytest.mark.parametrize("size", EDGE_SIZES)
+@pytest.mark.parametrize("fpu", [False, True], ids=["zero", "parent"])
+def test_select_walk_kernel_equals_plain_on_edge_trees(fpu, size, batch):
+    """Child indices beyond ``n_nodes`` and below -1, terminal nodes, and
+    cycles into the depth cap; 4, 8 and 16 columns a thread."""
+    dev = _card()
+    packed = torch.from_numpy(edge_tree(batch, size, size + batch)).to(dev)
+    layout = tk.packed_layout(size * size, N_NODES)
+    for depth in (DEPTH, 40):
+        got = tk.select_walk(packed, layout, 1.25, depth, fpu)
+        want = tk.select_walk_plain(packed, layout, 1.25, depth, fpu)
+        torch.cuda.synchronize()
+        for name, x, y in zip(("leaf", "action", "path_nodes",
+                               "path_actions", "path_len"), got, want):
+            assert torch.equal(x, y), (depth, name)
+
+
+def test_backup_paths_kernel_equals_plain_past_its_default_shared_memory():
+    """Path rows deeper than 48 KB of per-hop entries (6144 hops), and paths
+    longer than a block's threads, most of whose hops repeat an entry."""
+    dev = _card()
+    batch, size, depth = 4, 9, 7000
+    packed = torch.from_numpy(edge_tree(batch, size, 5)).to(dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    nodes = torch.randint(-2, N_NODES + 2, (depth, batch), generator=g,
+                          device=dev, dtype=torch.int32)
+    acts = torch.randint(-1, 12, (depth, batch), generator=g, device=dev,
+                         dtype=torch.int32)
+    plen = torch.tensor([depth, depth - 1, 300, 0], dtype=torch.int32,
+                        device=dev)
+    args = (nodes, acts, plen, torch.rand(batch, generator=g, device=dev),
+            torch.ones(batch, dtype=torch.bool, device=dev), N_NODES + 1,
+            tk.packed_layout(size * size, N_NODES),
+            torch.rand((batch, size * size), generator=g, device=dev),
+            torch.zeros(batch, dtype=torch.bool, device=dev))
+    for mode in tk.BACKUP_MODES:
+        got = tk.backup_paths(packed.clone(), *args, mode=mode)
+        want = tk.backup_paths_plain(packed.clone(), *args, mode=mode)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), mode
+
+
 def test_search_pi_kernels_equal_plain_and_count_launches():
     dev = _card()
     size, batch, sims = 15, 16, 24
@@ -143,6 +220,21 @@ def test_kernel_wrappers_raise_on_bad_cuda_inputs():
         tk.select_walk(packed[:, :8], layout, 1.0, 4)
     with pytest.raises(TypeError):
         tk.select_walk(packed.double(), layout, 1.0, 4)
+    wide = tk.packed_layout(tk.PUCT_MAX_ACTIONS + 1, 6)
+    with pytest.raises(ValueError, match="at most"):
+        tk.select_walk(tk.init_packed(2, wide, dev), wide, 1.0, 4)
+    # a contiguous view 4 bytes into its storage: the slot tile's 16-byte
+    # stores need 16-byte alignment
+    shifted = torch.zeros(packed.numel() + 1, device=dev)[1:].view(
+        packed.shape)
+    i32 = dict(dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        tk.backup_paths(shifted, torch.zeros((4, 2), **i32),
+                        torch.zeros((4, 2), **i32), torch.ones(2, **i32),
+                        torch.zeros(2, device=dev),
+                        torch.ones(2, dtype=torch.bool, device=dev), 1,
+                        layout, torch.zeros((2, 81), device=dev),
+                        torch.zeros(2, dtype=torch.bool, device=dev))
 
 
 def _gumbel_tree(dev, size=15, batch=64, sims=48, m=16):
@@ -209,11 +301,28 @@ TOWER_BATCHES = (1, 11, 256, 1024)
 def test_fused_tower_kernel_close_to_plain(channels, size, batch):
     """The kernel sums in another order than the plain version; a sum on the
     other side of a bf16 rounding boundary moves the next conv's input by a
-    bf16 step (see ``chip_smoke.FUSED_TOWER_STEPS``)."""
+    bf16 step (see ``chip_smoke.FUSED_TOWER_STEPS``), and such steps add up
+    over the convs and through the heads.  So tower, logits and value are
+    held against a float64 evaluation of the same folded net, with the same
+    bf16 storage points (``fused_tower_plain(..., torch.float64)``): the
+    kernel may be at most twice as far from it as the plain version is on
+    the same inputs (any float32 order lands about as far), or one bf16 step
+    of the output's scale (2^-8 of it), whichever is larger.  The scale of
+    the tower and of the logits is the reference's largest magnitude; the
+    value is a tanh, whose scale is its range, 1: a batch's largest |value|
+    (at a batch of one, one value) can lie anywhere near 0, and one bf16
+    step of it is no bound on what one flipped rounding in the tower makes
+    of the value through its head.  A kernel with a tap or a bias wrong lands far
+    beyond that."""
     dev = _card()
     cfg = NetConfig(board_size=size, action_size=size * size,
                     n_res_blocks=2, channels=channels)
-    folded = fn.fold_bn(cfg, *init_params(cfg, 1), device=dev)
+    # BN fitted to random boards: live heads, and folded biases that are not
+    # all zero, so that a bias the kernel gets wrong shows
+    params, stats = init_params(cfg, 1)
+    stats = fit_batch_stats(cfg, params, stats,
+                            q8.random_calib_obs(cfg, n=64, seed=2), device=dev)
+    folded = fn.fold_bn(cfg, params, stats, device=dev)
     obs = make_env("gomoku", size).encode(_random_states(
         make_env("gomoku", size), batch, 2 * size, 3, dev))
     fn.reset_launch_counts()
@@ -223,10 +332,20 @@ def test_fused_tower_kernel_close_to_plain(channels, size, batch):
     torch.cuda.synchronize()
     scale = float(want.abs().max())
     assert float((got - want).abs().max()) <= 2e-3 * max(scale, 1.0)
-    logits, value = fn.fused_predict(cfg, folded, obs)
-    plain_logits, plain_value = fn.folded_apply_plain(cfg, folded, obs)
-    assert float((logits - plain_logits).abs().max()) <= 1e-2
-    assert float((value - plain_value).abs().max()) <= 1e-3
+    ref = fn.fused_tower_plain(folded, obs, torch.float64)
+    kernel = (got, *fn.fused_predict(cfg, folded, obs))
+    plain = (want, *fn.folded_apply_plain(cfg, folded, obs))
+    ref = (ref, *fn.folded_apply_plain(cfg, folded, obs, torch.float64))
+    for name, k, p, r in zip(("tower", "logits", "value"), kernel, plain,
+                             ref):
+        k_err = float((k.double() - r.double()).abs().max())
+        p_err = float((p.double() - r.double()).abs().max())
+        scale = 1.0 if name == "value" else float(r.abs().max())
+        step = 2.0 ** -8 * scale
+        # the distances, shown by pytest -rP
+        print(f"{name}: kernel {k_err:.3g}, plain {p_err:.3g} from float64; "
+              f"bf16 step {step:.3g}")
+        assert k_err <= max(2 * p_err, step), (name, k_err, p_err, step)
     assert torch.equal(fn.fused_tower(folded, obs), got)    # deterministic
 
 

@@ -253,3 +253,54 @@ def test_gumbel_selfplay_on_the_fused_net_matches_jax():
         np.testing.assert_allclose(traj.root_qs[t].numpy(),
                                    np.asarray(root_q), rtol=0, atol=1e-5)
     assert traj.active.all()
+
+
+def _c4_criterion(kernel, plain, ref, scale=None):
+    """The card test's criterion (``tests/test_torch_port_cuda.py::
+    test_fused_tower_kernel_close_to_plain``) for one output: the kernel at
+    most twice as far from the float64 reference as the plain version, or
+    one bf16 step (2^-8) of the output's scale: the reference's largest
+    magnitude, or 1 for the value (a tanh)."""
+    k_err = float((kernel.double() - ref.double()).abs().max())
+    p_err = float((plain.double() - ref.double()).abs().max())
+    scale = float(ref.abs().max()) if scale is None else scale
+    return k_err <= max(2 * p_err, 2.0 ** -8 * scale)
+
+
+def test_float64_reference_holds_the_jax_kernel_by_the_card_criterion(net):
+    """``folded_apply_plain(..., torch.float64)`` keeps the kernel's bf16
+    storage points and sums to float64.  Another float32 order of the same
+    sums, the JAX kernel's (Pallas interpret mode), meets the card test's
+    criterion against it; the float64 tower is float32 and within a bf16
+    step of the plain one."""
+    cfg, folded = net["cfg"], net["folded"]
+    obs = torch.from_numpy(net["obs"])
+    jfold = jfn.fold_bn(net["jcfg"], net["params"], net["stats"])
+    with pltpu.force_tpu_interpret_mode():
+        jout = jfn.fused_predict(net["jcfg"], jfold, 8, jnp.asarray(obs))
+    ref = fn.folded_apply_plain(cfg, folded, obs, torch.float64)
+    for j, p, r, scale in zip(jout, net["plain"], ref, (None, 1.0)):
+        assert _c4_criterion(torch.from_numpy(np.array(j)), p, r, scale)
+    tower = fn.fused_tower_plain(folded, obs)
+    tower64 = fn.fused_tower_plain(folded, obs, torch.float64)
+    assert tower64.dtype == torch.float32
+    assert float((tower - tower64).abs().max()) <= \
+        2.0 ** -8 * float(tower64.abs().max())
+
+
+@pytest.mark.parametrize("fault", ["dropped_tap", "wrong_bias"])
+def test_card_criterion_catches_a_wrong_tower(net, fault):
+    """A tower with one tap of a conv dropped, or a conv's bias on the wrong
+    channels, fails the criterion on the tower."""
+    folded, obs = net["folded"], torch.from_numpy(net["obs"])
+    broken = dict(folded)
+    if fault == "dropped_tap":
+        broken["block_w"] = folded["block_w"].clone()
+        broken["block_w"][0, 1, 4] = 0
+    else:
+        broken["stem_b"] = torch.roll(folded["stem_b"], 1)
+    ref = fn.fused_tower_plain(folded, obs, torch.float64)
+    assert _c4_criterion(fn.fused_tower_plain(folded, obs),
+                         fn.fused_tower_plain(folded, obs), ref)
+    assert not _c4_criterion(fn.fused_tower_plain(broken, obs),
+                             fn.fused_tower_plain(folded, obs), ref)

@@ -16,11 +16,13 @@ from alphazero_gomoku_tpu.models.resnet import apply, init_variables
 from alphazero_gomoku_tpu_torch.models import (
     NetConfig,
     bundle_of,
+    fit_batch_stats,
     init_params,
     make_eval_fn,
     params_from_jax,
 )
 from alphazero_gomoku_tpu_torch.models.resnet import ResNet
+from alphazero_gomoku_tpu_torch.ops import int8_net as q8
 
 from torch_port_util import one_torch_thread  # noqa: F401  (autouse)
 
@@ -126,3 +128,30 @@ def test_training_mode_is_refused(weights):
     net = bundle_of(cfg, params, stats, device="cpu").train()
     with pytest.raises(NotImplementedError, match="Queue A item 8"):
         net(torch.from_numpy(_obs(2, 0)))
+
+
+def test_fit_batch_stats_normalizes_each_bn_input():
+    """``fit_batch_stats`` gives each BN the mean and variance of its input
+    on the boards: with them every BN's output has mean 0 and variance 1 per
+    channel there (before its affine, which init_params leaves at 1 and 0),
+    the folded biases are no longer zero, and the inputs are left as they
+    were."""
+    cfg = NetConfig(board_size=BOARD, action_size=BOARD * BOARD,
+                    n_res_blocks=2, channels=16)
+    params, stats = init_params(cfg, 3)
+    before = jax.tree_util.tree_map(np.copy, stats)
+    obs = q8.random_calib_obs(cfg, n=32, seed=4)
+    fitted = fit_batch_stats(cfg, params, stats, obs, device="cpu")
+    jax.tree_util.tree_map(np.testing.assert_array_equal, stats, before)
+    assert jax.tree_util.tree_structure(fitted) == \
+        jax.tree_util.tree_structure(stats)
+    net = bundle_of(cfg, params, fitted, device="cpu")
+    x = torch.from_numpy(obs).permute(0, 3, 1, 2)
+    with torch.no_grad():
+        h = net.stem_bn(net.stem(x))
+        for y in (h, net.blocks[0].bn1(net.blocks[0].conv1(torch.relu(h)))):
+            np.testing.assert_allclose(y.mean(dim=(0, 2, 3)).numpy(), 0,
+                                       atol=1e-5)
+            np.testing.assert_allclose(
+                y.var(dim=(0, 2, 3), unbiased=False).numpy(), 1, atol=1e-3)
+    assert np.abs(fitted["stem_bn"]["mean"]).max() > 0
