@@ -8,41 +8,53 @@
 // bf16 x bf16 -> float32.  Many steps of the same work in one launch make a
 // rate that the caller takes from the difference between two step counts.
 //
-// Instructions: int8 as mma.sync.m16n8k32.row.col.s32.s8.s8.s32, the one
-// the int8 tower (csrc/int8_tower.cu) issues; bf16 as
-// mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32, what the bf16 tower's wmma
-// 16x16x16 fragments (csrc/fused_net.cu) lower to.  Every mma is an asm
-// volatile statement, so nvcc can neither drop the earlier steps, whose sums
-// are overwritten, nor merge them: the counterpart of the Pallas kernel's
-// zero-valued dependence of each step's weight on the last accumulator.
+// Instructions: the towers' own wgmma forms, issued through the helpers of
+// csrc/conv_tile.cuh (the towers' shared core): int8 as one m64n128k32
+// s32.s8.s8 (wgmma_s8_n128, what the int8 tower issues) per 32 bytes of K,
+// bf16 as two m64n64k16 f32.bf16.bf16 (wgmma_bf16_n64, the bf16 tower's)
+// for the 128 columns.  A and B both come from shared memory through
+// descriptors without swizzle over chunk planes (16 bytes of K of every
+// row, rows 16 bytes apart), as the towers read them: a row shift r is a
+// move of A's start address by r * 16 bytes, as a tap is in conv_tile.cuh,
+// and nothing is re-staged or loaded into registers.  Every wgmma is an asm
+// volatile statement, so nvcc can neither drop the earlier steps, whose
+// sums are overwritten, nor merge them: the counterpart of the Pallas
+// kernel's zero-valued dependence of each step's weight on the last
+// accumulator.
 //
-// Design: the layout of the int8 tower's GEMM.  A block of 8 warps (4 along
-// M x 2 along N) owns a 128 x 128 output tile, each warp a 32 x 64 slice
-// in 2 x 8 mma tiles with register accumulators; rows past M are masked.
-// Both operands are staged in shared memory with rows of k bytes plus 16 of
-// padding, so that the 32-bit fragment loads of a warp hit 32 distinct
-// banks: the block's 128 + reps - 1 rows of x, and w transposed ([N][k]: the
-// mma wants 4 (int8) or 2 (bf16) consecutive k of one column in a 32-bit
-// register), which the caller hands over in that layout.  The two operands
-// have the same byte layout in both types (a 32-byte slice of k per mma), so
-// one kernel serves both.
-// Per 32-byte slice of k a warp loads its B fragments once and reuses them
-// for all reps row shifts of x.
+// Layout: the wrapper (tools/matmul_rate.py, rate_planes) lays x out as
+// chunk planes [k * E / 16][rows][16 bytes] (E the element's bytes; rows =
+// the tiles' 128 rows each, plus the reps - 1 rows a tile's shifts read
+// past its end, rounded up to 8; zero past x's rows), and w as
+// [N / 128][k * E / 16][128][16 bytes] (per slice of 128 columns, per chunk
+// of K, the columns' 16 bytes).
+//
+// Schedule: the work is tiles of 128 output rows (64 a consumer warpgroup)
+// by 128 columns, each `steps` times; its units, (tile, step) in tile-major
+// order, are split evenly over persistent blocks, one an SM, so that every
+// SM has work at M 2040 too (16 tiles on 132 SMs) and the last wave is not
+// ragged at M 57600 (450 tiles).  A block runs its units in order, and the
+// unit that is its tile's last step stores the tile; rows past M are masked.
+// Each step zeroes the accumulators, issues its reps * k / (32 bytes)
+// instructions (twice that in bf16), and waits for them.
+//   - Resident (a tile's A rows and B fit in shared memory: k = 128): both
+//     are staged once per tile by bulk copies (cp.async.bulk) completing on
+//     an mbarrier, and each step issues all its instructions back to back,
+//     then one commit and one wait.
+//   - Streamed (k = 1152, where w alone is 147 KB int8, 295 KB bf16): a
+//     ring of stages of STAGE_CHUNKS chunk planes of A and B, fed by a
+//     producer warp's bulk copies (a full and an empty mbarrier a stage);
+//     the consumers wait for each stage, keep one stage's instructions in
+//     flight (wgmma.wait_group 1) and release the stage before it.  This is
+//     what an im2col tower on wgmma would pay with asynchronous staging.
 //
 // What bounds it on the card: the operations, 2 * M * k * N * reps per
 // step, over the dense tensor-core rate of the type (H100 SXM data sheet:
-// int8 1979 TOP/s, bf16 989 TFLOP/s); a step reads nothing from device
-// memory.  Where both operands fit in shared memory (k = 128: 38 KB int8,
-// 72 KB bf16 at reps 9) they are staged once before the first step, and the
-// steps measure mma.sync fed from shared memory, the ceiling of the towers'
-// instruction choice.  At k = 1152 they do not (w alone is 147 KB int8,
-// 295 KB bf16): every step then walks k in chunks of 256 bytes, each staged
-// from L2 between two block-wide barriers, and the shape measures mma.sync
-// with synchronous staging, what an im2col tower built this way would pay.
-// The grid is ceil(M / 128) x (N / 128) blocks: at M = 2040 that is 16
-// blocks for 132 SMs, at M = 57600 (the towers' GEMM at batch 256) 450.
-// wgmma, whose operands come from shared memory without register fragments,
-// is the way to the full rate and is not used here.
+// int8 1979 TOP/s, bf16 989 TFLOP/s); a resident step reads nothing from
+// device memory.  With A and B both read from shared memory an int8
+// instruction needs 2 KB of A and 4 KB of B, 96 of shared memory's 128
+// bytes a clock at the dense rate; a bf16 m64n64k16 2 KB of each, all 128
+// (conv_tile.cuh's note), so bf16 has no headroom there.
 //
 // Built by ops/_build.py (nvcc -gencode arch=compute_90a,code=sm_90a -O3).
 // The entry point launches on the stream it is given and returns
@@ -51,213 +63,322 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "conv_tile.cuh"
+
 namespace {
 
-constexpr int BM = 128;          // output rows per block
-constexpr int BN = 128;          // output columns per block
-constexpr int THREADS = 256;     // 8 warps: 4 along M x 2 along N
-constexpr int PAD = 16;          // shared-memory row padding in bytes
-constexpr int CHUNK = 256;       // bytes of k per staged chunk when streamed
-constexpr int MMA_K_BYTES = 32;  // bytes of k per mma (32 int8, 16 bf16)
-constexpr int SMEM_LIMIT = 232448;     // 227 KB, a block's most on sm_90
-constexpr int RESIDENT_LIMIT = 113664;  // 111 KB: two blocks per SM
+namespace ct = conv_tile;
 
-struct MmaS8 {
-  using Acc = int;
-  static constexpr int ELEM = 1;
-  static __device__ __forceinline__ void mma(int* c, const uint32_t* a,
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+constexpr int TILE_M = 128;      // output rows of a tile: 64 a warpgroup
+constexpr int TILE_N = 128;      // output columns of a tile
+constexpr int CONSUMERS = 256;   // two warpgroups
+constexpr int PRODUCER = 32;     // the streamed kernel's producer warp
+constexpr int STAGE_CHUNKS = 8;  // chunk planes of K a ring stage (at most)
+constexpr int MAX_STAGES = 6;
+constexpr int BARS = 128;        // the header: mbarriers
+
+struct Args {
+  int m, n;
+  int kc;          // 16-byte chunks of K
+  int reps, steps;
+  int rows;        // rows of x's chunk planes
+  int a_rows;      // rows a tile stages: 128 + (reps - 1) rounded up to 8
+  int m_tiles;     // tiles along M; tile t is rows (t % m_tiles) * 128,
+                   // columns (t / m_tiles) * 128
+  long long units; // tiles * steps
+  int chunks;      // streamed: chunk planes a stage
+  int stages;      // streamed: stages of the ring
+};
+
+// Accumulators of a warpgroup's 64 x 128 tile: H instructions of 128 / H
+// columns each (int8: one n128; bf16: two n64), 64 / H registers each.
+template <typename Acc, int H>
+struct Tile {
+  Acc d[H][64 / H];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+#pragma unroll
+      for (int i = 0; i < 64 / H; ++i) d[h][i] = Acc(0);
+      ct::fence_acc(d[h]);
+    }
+  }
+
+  // 32 bytes of K: a from A's descriptor, the columns from B's, each half
+  // of the columns (128 / H) * 16 bytes on
+  __device__ __forceinline__ void mma(uint64_t a, uint64_t b) {
+#pragma unroll
+    for (int h = 0; h < H; ++h)
+      ct::wgmma(d[h], a, b + (uint64_t)(h * (TILE_N / H)));
+  }
+
+  __device__ __forceinline__ void fence() {
+#pragma unroll
+    for (int h = 0; h < H; ++h) ct::fence_acc(d[h]);
+  }
+
+  // Thread lt of the warpgroup holds rows 16 * (lt / 32) + (lt % 32) / 4
+  // (+ 8) of its 64, and column pairs 8j + 2 (lt % 4) of each instruction's.
+  __device__ __forceinline__ void store(Acc* out, int row0, int col0, int lt,
+                                        int m, int n) const {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 16 * (lt >> 5) + ((lt & 31) >> 2) + 8 * r;
+      if (row >= m) continue;
+      Acc* o = out + (size_t)row * n + col0 + 2 * (lt & 3);
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+#pragma unroll
+        for (int j = 0; j < TILE_N / H / 8; ++j) {
+          o[h * (TILE_N / H) + 8 * j] = d[h][4 * j + 2 * r];
+          o[h * (TILE_N / H) + 8 * j + 1] = d[h][4 * j + 2 * r + 1];
+        }
+    }
   }
 };
 
-struct MmaBf16 {
-  using Acc = float;
-  static constexpr int ELEM = 2;
-  static __device__ __forceinline__ void mma(float* c, const uint32_t* a,
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-};
-
-__device__ __forceinline__ uint32_t lds32(const uint8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// A descriptor of a tile's A (chunk planes of `a_rows` rows, warpgroup wg's
+// 64 rows) and of B (chunk planes of 128 columns).
+__device__ __forceinline__ uint64_t a_desc(const uint8_t* a, int a_rows,
+                                           int wg) {
+  return ct::desc(ct::smem_u32(a) + wg * 64 * 16, a_rows * 16, 128);
+}
+__device__ __forceinline__ uint64_t b_desc(const uint8_t* b) {
+  return ct::desc(ct::smem_u32(b), TILE_N * 16, 128);
 }
 
-// Rows [row0, row0 + rows) of a row-major matrix of row_bytes-byte rows,
-// bytes [c0, c0 + cb) of each, into shared memory rows of ld bytes; rows at
-// or past n_rows are zero.  cb, c0, row_bytes and ld are multiples of 16.
-__device__ __forceinline__ void stage(uint8_t* dst, int ld,
-                                      const uint8_t* __restrict__ src,
-                                      int row_bytes, int row0, int rows,
-                                      int n_rows, int c0, int cb) {
-  const int vecs = cb / 16;
-  for (int i = threadIdx.x; i < rows * vecs; i += THREADS) {
-    const int r = i / vecs;
-    const int q = i % vecs;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_rows)
-      v = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * row_bytes +
-                                          c0 + 16 * q);
-    *reinterpret_cast<uint4*>(dst + r * ld + 16 * q) = v;
-  }
+// One stage's instructions: every row shift and 32-byte step of `chunks`
+// chunk planes.  Offsets are in 16-byte units of the descriptors' start.
+template <typename Acc, int H>
+__device__ __forceinline__ void issue(Tile<Acc, H>& acc, uint64_t a,
+                                      uint64_t b, int chunks, int a_rows,
+                                      int reps) {
+  for (int r = 0; r < reps; ++r)
+#pragma unroll 4
+    for (int c = 0; c < chunks; c += 2)
+      acc.mma(a + (uint64_t)(c * a_rows + r), b + (uint64_t)(c * TILE_N));
 }
 
-// One block: output rows p0 .. p0 + 127, columns n0 .. n0 + 127.  x has
-// m + reps rows of k_bytes bytes, wt n rows of k_bytes bytes; k is walked in
-// chunks of `chunk` bytes (one chunk: staged once, before the first step).
-template <typename Op>
-__global__ void __launch_bounds__(THREADS, 2)
-matmul_rate_kernel(const uint8_t* __restrict__ x,
-                   const uint8_t* __restrict__ wt,
-                   typename Op::Acc* __restrict__ out, int m, int n,
-                   int k_bytes, int reps, int steps, int chunk) {
-  using Acc = typename Op::Acc;
-  extern __shared__ __align__(16) uint8_t smem[];
-  const int ld = chunk + PAD;
-  const int a_rows = BM + reps - 1;
-  uint8_t* sa = smem;
-  uint8_t* sb = smem + a_rows * ld;
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   ct::smem_u32(bar))
+               : "memory");
+}
 
+__device__ __forceinline__ void wgmma_wait_1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
+// The block's units [u0, u1): an even share of all of them.
+__device__ __forceinline__ void block_units(const Args& g, long long& u0,
+                                            long long& u1) {
+  u0 = g.units * blockIdx.x / gridDim.x;
+  u1 = g.units * (blockIdx.x + 1) / gridDim.x;
+}
+
+template <typename Acc, int H>
+__global__ void __launch_bounds__(CONSUMERS, 1)
+rate_resident(const uint8_t* __restrict__ xp, const uint8_t* __restrict__ wp,
+              Acc* __restrict__ out, const Args g) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  uint8_t* const sa = smem + BARS;                     // [kc][a_rows][16]
+  uint8_t* const sb = sa + (size_t)g.kc * g.a_rows * 16;  // [kc][128][16]
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int g = lane >> 2;        // the fragment's group (row / column)
-  const int t = lane & 3;         // its thread in the group
-  const int wm = warp & 3;
-  const int wn = warp >> 2;
-  const int p0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int n_chunks = (k_bytes + chunk - 1) / chunk;
-
-  if (n_chunks == 1) {
-    stage(sa, ld, x, k_bytes, p0, a_rows, m + reps, 0, k_bytes);
-    stage(sb, ld, wt, k_bytes, n0, BN, n, 0, k_bytes);
-    __syncthreads();
+  const int wg = tid >> 7;
+  if (tid == 0) {
+    ct::mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-
-  Acc acc[2][8][4];
-  for (int step = 0; step < steps; ++step) {
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = Acc(0);
-
-    for (int c = 0; c < n_chunks; ++c) {
-      const int c0 = c * chunk;
-      const int cb = min(chunk, k_bytes - c0);
-      if (n_chunks > 1) {
-        __syncthreads();    // every warp is done with the last chunk
-        stage(sa, ld, x, k_bytes, p0, a_rows, m + reps, c0, cb);
-        stage(sb, ld, wt, k_bytes, n0, BN, n, c0, cb);
-        __syncthreads();
-      }
-      for (int kk = 0; kk < cb; kk += MMA_K_BYTES) {
-        uint32_t b[8][2];
-#pragma unroll
-        for (int ni = 0; ni < 8; ++ni) {
-          const uint8_t* base = sb + (wn * 64 + ni * 8 + g) * ld + kk + 4 * t;
-          b[ni][0] = lds32(base);
-          b[ni][1] = lds32(base + 16);
-        }
-        for (int r = 0; r < reps; ++r) {
-          uint32_t a[2][4];
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
-            const uint8_t* base =
-                sa + (wm * 32 + mi * 16 + g + r) * ld + kk + 4 * t;
-            a[mi][0] = lds32(base);
-            a[mi][1] = lds32(base + 8 * ld);
-            a[mi][2] = lds32(base + 16);
-            a[mi][3] = lds32(base + 8 * ld + 16);
-          }
-#pragma unroll
-          for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-            for (int mi = 0; mi < 2; ++mi)
-              Op::mma(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
-        }
-      }
+  __syncthreads();
+  long long u0, u1;
+  block_units(g, u0, u1);
+  const uint64_t a = a_desc(sa, g.a_rows, wg);
+  const uint64_t b = b_desc(sb);
+  Tile<Acc, H> acc;
+  uint32_t phase = 0;
+  for (long long u = u0; u < u1;) {
+    const int tile = (int)(u / g.steps);
+    const int first = (int)(u - (long long)tile * g.steps);
+    const int last = (int)min((long long)g.steps, first + (u1 - u));
+    const int mt = tile % g.m_tiles;
+    const int ns = tile / g.m_tiles;
+    if (u != u0) __syncthreads();  // both warpgroups done with the last tile
+    if (tid == 0) {
+      const uint32_t a_bytes = (uint32_t)g.a_rows * 16;
+      const uint32_t b_bytes = (uint32_t)g.kc * TILE_N * 16;
+      ct::mbar_expect_tx(bar, a_bytes * g.kc + b_bytes);
+      for (int c = 0; c < g.kc; ++c)
+        ct::bulk_copy(sa + (size_t)c * a_bytes,
+                      xp + ((size_t)c * g.rows + (size_t)mt * TILE_M) * 16,
+                      a_bytes, bar);
+      ct::bulk_copy(sb, wp + (size_t)ns * b_bytes, b_bytes, bar);
     }
-  }
-
-  // accumulator element e of tile (mi, ni) is row g + 8 * (e >> 1), column
-  // 2 * t + (e & 1)
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int p = p0 + wm * 32 + mi * 16 + g + 8 * half;
-      if (p >= m) continue;
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-        const int col = n0 + wn * 64 + ni * 8 + 2 * t;
-        Acc* o = out + (size_t)p * n + col;
-        o[0] = acc[mi][ni][2 * half];
-        o[1] = acc[mi][ni][2 * half + 1];
-      }
+    ct::mbar_wait(bar, phase);
+    __syncwarp();  // the warp converged again for the wgmma's .aligned
+    phase ^= 1u;
+    for (int step = first; step < last; ++step) {
+      acc.zero();
+      ct::wgmma_fence();
+      issue(acc, a, b, g.kc, g.a_rows, g.reps);
+      ct::wgmma_commit();
+      ct::wgmma_wait_all();
+      acc.fence();
     }
+    if (last == g.steps)
+      acc.store(out, mt * TILE_M + wg * 64, ns * TILE_N, tid & 127, g.m, g.n);
+    u += last - first;
   }
 }
 
-long long smem_bytes(int chunk, int reps) {
-  return (long long)(BM + reps - 1 + BN) * (chunk + PAD);
+template <typename Acc, int H>
+__global__ void __launch_bounds__(CONSUMERS + PRODUCER, 1)
+rate_streamed(const uint8_t* __restrict__ xp, const uint8_t* __restrict__ wp,
+              Acc* __restrict__ out, const Args g) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + MAX_STAGES;
+  const uint32_t a_bytes = (uint32_t)g.chunks * g.a_rows * 16;
+  const uint32_t b_bytes = (uint32_t)g.chunks * TILE_N * 16;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < g.stages; ++s) {
+      ct::mbar_init(&full[s], 1);
+      ct::mbar_init(&empty[s], CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  long long u0, u1;
+  block_units(g, u0, u1);
+  const int per_step = g.kc / g.chunks;
+
+  if (tid >= CONSUMERS) {  // the producer warp: one thread issues the copies
+    if (tid != CONSUMERS) return;
+    int i = 0;
+    for (long long u = u0; u < u1; ++u) {
+      const int tile = (int)(u / g.steps);
+      const int mt = tile % g.m_tiles;
+      const int ns = tile / g.m_tiles;
+      for (int ch = 0; ch < per_step; ++ch, ++i) {
+        const int s = i % g.stages;
+        ct::mbar_wait(&empty[s], ((uint32_t)(i / g.stages) & 1u) ^ 1u);
+        uint8_t* const sa = smem + BARS + (size_t)s * (a_bytes + b_bytes);
+        ct::mbar_expect_tx(&full[s], a_bytes + b_bytes);
+        for (int c = 0; c < g.chunks; ++c)
+          ct::bulk_copy(
+              sa + (size_t)c * g.a_rows * 16,
+              xp + ((size_t)(ch * g.chunks + c) * g.rows +
+                    (size_t)mt * TILE_M) * 16,
+              (uint32_t)g.a_rows * 16, &full[s]);
+        ct::bulk_copy(sa + a_bytes,
+                      wp + ((size_t)ns * g.kc + (size_t)ch * g.chunks) *
+                               TILE_N * 16,
+                      b_bytes, &full[s]);
+      }
+    }
+    return;
+  }
+
+  const int wg = tid >> 7;
+  Tile<Acc, H> acc;
+  int i = 0;
+  for (long long u = u0; u < u1; ++u) {
+    const int tile = (int)(u / g.steps);
+    acc.zero();
+    for (int ch = 0; ch < per_step; ++ch, ++i) {
+      const int s = i % g.stages;
+      ct::mbar_wait(&full[s], (uint32_t)(i / g.stages) & 1u);
+      __syncwarp();
+      const uint8_t* sa = smem + BARS + (size_t)s * (a_bytes + b_bytes);
+      ct::wgmma_fence();
+      issue(acc, a_desc(sa, g.a_rows, wg), b_desc(sa + a_bytes), g.chunks,
+            g.a_rows, g.reps);
+      ct::wgmma_commit();
+      if (ch > 0) {  // the stage before this one is read: release it
+        wgmma_wait_1();
+        mbar_arrive(&empty[(i - 1) % g.stages]);
+      }
+    }
+    ct::wgmma_wait_all();
+    acc.fence();
+    mbar_arrive(&empty[(i - 1) % g.stages]);
+    if (u - (long long)tile * g.steps == g.steps - 1)
+      acc.store(out, (tile % g.m_tiles) * TILE_M + wg * 64,
+                (tile / g.m_tiles) * TILE_N, tid & 127, g.m, g.n);
+  }
 }
 
-template <typename Op>
-int launch(const void* x, const void* wt, void* out, int m, int k, int n,
-           int reps, int steps, cudaStream_t s) {
-  const int k_bytes = k * Op::ELEM;
-  int chunk = k_bytes;
-  if (smem_bytes(chunk, reps) > RESIDENT_LIMIT) {
-    chunk = CHUNK;
-    while (chunk > MMA_K_BYTES && smem_bytes(chunk, reps) > SMEM_LIMIT)
-      chunk /= 2;
-  }
-  if (smem_bytes(chunk, reps) > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  const int smem = (int)smem_bytes(chunk, reps);
-  static bool attribute_set = false;
-  if (!attribute_set) {
-    const int err = (int)cudaFuncSetAttribute(
-        matmul_rate_kernel<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        SMEM_LIMIT);
+// Lets Kernel's blocks take the most shared memory a block may have, once.
+template <auto Kernel>
+int allow_smem() {
+  static int err = (int)cudaFuncSetAttribute(
+      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ct::SMEM_LIMIT);
+  return err;
+}
+
+template <typename Acc, int H>
+int launch(const void* xp, const void* wp, void* out, Args g,
+           cudaStream_t s) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int grid = g.units < sms ? (int)g.units : sms;
+  const auto* x = static_cast<const uint8_t*>(xp);
+  const auto* w = static_cast<const uint8_t*>(wp);
+  Acc* o = static_cast<Acc*>(out);
+  const long long resident =
+      BARS + (long long)g.kc * (g.a_rows + TILE_N) * 16;
+  if (resident <= ct::SMEM_LIMIT) {
+    const int err = allow_smem<rate_resident<Acc, H>>();
     if (err != 0) return err;
-    attribute_set = true;
+    rate_resident<Acc, H><<<grid, CONSUMERS, (int)resident, s>>>(x, w, o, g);
+    return (int)cudaGetLastError();
   }
-  const dim3 grid((m + BM - 1) / BM, n / BN);
-  matmul_rate_kernel<Op><<<grid, THREADS, smem, s>>>(
-      static_cast<const uint8_t*>(x), static_cast<const uint8_t*>(wt),
-      static_cast<typename Op::Acc*>(out), m, n, k_bytes, reps, steps, chunk);
+  g.chunks = g.kc % STAGE_CHUNKS == 0 ? STAGE_CHUNKS
+             : g.kc % 4 == 0          ? 4
+                                      : 2;
+  const long long stage = (long long)g.chunks * (g.a_rows + TILE_N) * 16;
+  const long long fit = (ct::SMEM_LIMIT - BARS) / stage;
+  g.stages = fit < MAX_STAGES ? (int)fit : MAX_STAGES;
+  if (g.stages < 2) return (int)cudaErrorInvalidValue;
+  const int err = allow_smem<rate_streamed<Acc, H>>();
+  if (err != 0) return err;
+  rate_streamed<Acc, H><<<grid, CONSUMERS + PRODUCER,
+                          BARS + (int)(g.stages * stage), s>>>(x, w, o, g);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // out [m, n] <- the last of `steps` sums sum_{r < reps} x[r : r + m] @ w,
-// for x [m + reps, k] row-major and w given transposed, wt [n, k] row-major.
-// dtype 0: int8 -> int32; 1: bf16 -> float32.  k must be a multiple of the
-// mma depth (32 int8, 16 bf16) and n of 128; m, reps and steps at least 1.
-// Returns 0, or the launch's CUDA error (cudaErrorInvalidValue for
-// arguments the kernel does not take).
-extern "C" int matmul_rate_launch(int dtype, const void* x, const void* wt,
+// for x and w in the chunk planes of tools/matmul_rate.py rate_planes: xp
+// [k * E / 16][rows][16 bytes] with rows = ceil(m / 128) * 128 + (reps - 1)
+// rounded up to 8, wp [n / 128][k * E / 16][128][16 bytes].  dtype 0: int8
+// -> int32; 1: bf16 -> float32.  k * E must be a multiple of 32 bytes, n of
+// 128; m, reps and steps at least 1.  Returns 0, or the launch's CUDA error
+// (cudaErrorInvalidValue for arguments the kernel does not take).
+extern "C" int matmul_rate_launch(int dtype, const void* xp, const void* wp,
                                   void* out, int m, int k, int n, int reps,
-                                  int steps, void* stream) {
+                                  int steps, int rows, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  if (m < 1 || reps < 1 || steps < 1 || n < BN || n % BN != 0)
+  const int elem = dtype == 0 ? 1 : 2;
+  if ((dtype != 0 && dtype != 1) || m < 1 || reps < 1 || steps < 1 ||
+      k < 1 || (k * elem) % 32 != 0 || n < TILE_N || n % TILE_N != 0)
     return (int)cudaErrorInvalidValue;
-  if (dtype == 0 && k > 0 && k % 32 == 0)
-    return launch<MmaS8>(x, wt, out, m, k, n, reps, steps, s);
-  if (dtype == 1 && k > 0 && k % 16 == 0)
-    return launch<MmaBf16>(x, wt, out, m, k, n, reps, steps, s);
-  return (int)cudaErrorInvalidValue;
+  Args g = {};
+  g.m = m;
+  g.n = n;
+  g.kc = k * elem / 16;
+  g.reps = reps;
+  g.steps = steps;
+  g.a_rows = TILE_M + (reps - 1 + 7) / 8 * 8;
+  g.m_tiles = (m + TILE_M - 1) / TILE_M;
+  g.rows = rows;
+  g.units = (long long)g.m_tiles * (n / TILE_N) * steps;
+  if (rows != (g.m_tiles - 1) * TILE_M + g.a_rows)
+    return (int)cudaErrorInvalidValue;
+  return dtype == 0 ? launch<int, 1>(xp, wp, out, g, s)
+                    : launch<float, 2>(xp, wp, out, g, s);
 }

@@ -48,8 +48,8 @@ SL_N, SL_W, SL_P, SL_C, SL_META = 0, 1, 2, 3, 4
 # action index when no score equals the maximum (only with NaN scores); the
 # JAX kernel's sentinel
 NO_ACTION = 1 << 30
-# the walk kernels keep each thread's columns in registers: at most 16 per
-# thread of a warp (csrc/tree_kernels.cu, PUCT_MAX_COLS and GUMBEL_COLS)
+# the walk kernels keep a lane's columns t + 32 j in registers of its
+# threads t: at most 16 (csrc/tree_kernels.cu, MAX_COLS)
 PUCT_MAX_ACTIONS = 16 * 32
 GUMBEL_MAX_ACTIONS = 16 * 32
 
@@ -246,7 +246,7 @@ def _library() -> ctypes.CDLL:
                                             p, p, i, i, p]
         lib.backup_paths_launch.restype = i
         lib.gumbel_select_walk_launch.argtypes = [p, p, i, i, i, i, i, f, f,
-                                                  i, p, p, p, p, p, p]
+                                                  i, p, p]
         lib.gumbel_select_walk_launch.restype = i
         _LIB = lib
     return _LIB
@@ -445,7 +445,8 @@ def gumbel_select_walk(packed: torch.Tensor, root_actions: torch.Tensor,
     output is sized ``[B * fan]`` / ``[depth, B * fan]``.
 
     CPU tensors take :func:`gumbel_select_walk_plain`; CUDA tensors the
-    kernel.
+    kernel (at most ``GUMBEL_MAX_ACTIONS`` actions), whose outputs are views
+    of one new int32 buffer, as :func:`select_walk`'s.
     """
     b = _check_packed(packed, layout)
     if depth_limit < 1:
@@ -466,21 +467,18 @@ def gumbel_select_walk(packed: torch.Tensor, root_actions: torch.Tensor,
                          f"{layout.num_actions}")
     lib = _library()
     dev = packed.device
-
-    def out(*shape):
-        return torch.empty(shape, dtype=torch.int32, device=dev)
-
-    leaf, action, plen = out(lanes), out(lanes), out(lanes)
-    pnodes, pacts = out(depth_limit, lanes), out(depth_limit, lanes)
+    rows = depth_limit * lanes
+    out = torch.empty(3 * lanes + 2 * rows, dtype=torch.int32, device=dev)
     err = _launch(dev, lib.gumbel_select_walk_launch, packed.data_ptr(),
                   root_actions.data_ptr(), b, fan, layout.n_nodes,
                   layout.seg, layout.num_actions, float(c_visit),
-                  float(c_scale), depth_limit, leaf.data_ptr(),
-                  action.data_ptr(), pnodes.data_ptr(), pacts.data_ptr(),
-                  plen.data_ptr())
+                  float(c_scale), depth_limit, out.data_ptr())
     _raise_on(err, "gumbel_select_walk")
     gumbel_select_walk.launches += 1
-    return leaf, action, pnodes, pacts, plen
+    leaf, action, plen, pnodes, pacts = out.split_with_sizes(
+        (lanes, lanes, lanes, rows, rows))
+    return (leaf, action, pnodes.view(depth_limit, lanes),
+            pacts.view(depth_limit, lanes), plen)
 
 
 gumbel_select_walk.launches = 0

@@ -6,11 +6,14 @@ over, ``out [M, N] = sum_{r < reps} x[r:r+M] @ w`` from zero; the last
 step's sum is returned.  int8 x int8 -> int32, or bf16 x bf16 -> float32.
 
   - :func:`matmul_rate` runs it as the CUDA kernel in
-    ``csrc/matmul_rate.cu`` on CUDA tensors (``mma.sync``, the instruction
-    of the int8 tower kernel and what the bf16 tower's ``wmma`` issues), and
-    as :func:`matmul_rate_plain` on CPU tensors.  It counts its kernel
-    launches in ``matmul_rate.launches`` and per dtype in
+    ``csrc/matmul_rate.cu`` on CUDA tensors (``wgmma``, in the towers' own
+    forms: int8 m64n128k32 and bf16 m64n64k16, both operands from shared
+    memory), and as :func:`matmul_rate_plain` on CPU tensors.  It counts its
+    kernel launches in ``matmul_rate.launches`` and per dtype in
     ``matmul_rate.dtype_launches``.
+  - :func:`rate_planes` lays ``x`` and ``w`` out as the kernel reads them,
+    in 16-byte chunk planes, before each launch;
+    :func:`matmul_rate_planes_plain` is the product over those planes.
   - :func:`library_sum` is the control, the JAX tool's ``xla_rate``: one
     step through one PyTorch call per dot (``torch._int_mm``, whose second
     operand must be column-major on the card, or ``torch.mm(...,
@@ -57,14 +60,20 @@ HI, LO = 400, 50    # the JAX tool's step counts
 # run(steps) calls per time_rate: a warm-up, then two at LO and two at HI
 CALLS_PER_RATE = 1 + 2 + 2
 CONSTRUCT = "delta of in-kernel step counts (CUDA events, best of 2)"
+# a spin of about 2 ms before each timed run (torch.cuda._sleep): at M 2040
+# a kernel step takes 0.3 us, less than the host takes to enqueue the
+# wrapper's layout and launch, which the events would otherwise time
+SLEEP_CYCLES = 4_000_000
 
-# dtype name -> (input dtype, accumulator dtype, mma depth in elements)
+# dtype name -> (input dtype, accumulator dtype, elements of K an
+# instruction takes: 32 bytes)
 DTYPES = {"int8": (torch.int8, torch.int32, 32),
           "bf16": (torch.bfloat16, torch.float32, 16)}
 # dense tensor-core peaks of an H100 SXM (NVIDIA data sheet), TOP/s and
 # TFLOP/s; a rate above 1.25x its peak means steps were elided
 PEAK_TFLOPS = {"int8": 1979.0, "bf16": 989.0}
-BLOCK_N = 128       # the kernel's block of output columns
+BLOCK_N = 128       # the kernel's tile of output columns
+TILE_M = 128        # the kernel's tile of output rows (64 a warpgroup)
 # the bf16 kernel against its plain version: two float32 sums of the same
 # exact products in different orders.  Their difference is about 2^-23 of
 # sum |x * w| per element (one rounding per add, at most k * reps adds);
@@ -112,11 +121,55 @@ def matmul_rate_plain(x: torch.Tensor, w: torch.Tensor, reps: int,
     return acc.to(DTYPES[name][1])
 
 
+def plane_rows(m: int, reps: int) -> int:
+    """Rows of ``x``'s chunk planes: the tiles' ``TILE_M`` rows each, plus
+    the ``reps - 1`` rows that a tile's shifts read past its end, rounded up
+    to 8 (``a_rows`` of ``csrc/matmul_rate.cu``)."""
+    return -(-m // TILE_M) * TILE_M + -(-(reps - 1) // 8) * 8
+
+
+def rate_planes(x: torch.Tensor, w: torch.Tensor,
+                reps: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``x [M + reps, k]`` and ``w [k, N]`` in the kernel's chunk planes,
+    ``E = 16 / itemsize`` elements (16 bytes) of K a chunk:
+
+      - ``xp [k / E, plane_rows(M, reps), E]``: plane ``c`` holds elements
+        ``c*E .. c*E + E - 1`` of every row, rows past ``x``'s zero;
+      - ``wp [N / 128, k / E, 128, E]``: per slice of 128 columns, per chunk
+        of K, the slice's columns (``w`` transposed).
+
+    A row shift ``r`` of ``x`` is then rows ``r .. r + M`` of every plane:
+    the kernel moves a descriptor's start by ``r * 16`` bytes."""
+    m = x.shape[0] - reps
+    k, n = w.shape
+    e = 16 // x.element_size()
+    rows = plane_rows(m, reps)
+    flat = x.new_zeros((rows, k))
+    take = min(x.shape[0], rows)
+    flat[:take] = x[:take]
+    xp = flat.reshape(rows, k // e, e).transpose(0, 1).contiguous()
+    wp = w.t().reshape(n // BLOCK_N, BLOCK_N, k // e, e).transpose(1, 2) \
+        .contiguous()
+    return xp, wp
+
+
+def matmul_rate_planes_plain(xp: torch.Tensor, wp: torch.Tensor, m: int,
+                             reps: int, steps: int) -> torch.Tensor:
+    """:func:`matmul_rate_plain` on the operands as the kernel reads them
+    (:func:`rate_planes`): row shift ``r`` is rows ``r .. r + m`` of every
+    chunk plane of ``xp``, ``w`` the columns of ``wp``'s slices."""
+    kc, rows, e = xp.shape
+    x = xp.transpose(0, 1).reshape(rows, kc * e)
+    w = wp.transpose(1, 2).reshape(-1, kc * e).t()
+    return matmul_rate_plain(x[:m + reps].contiguous(), w.contiguous(), reps,
+                             steps)
+
+
 def _library() -> ctypes.CDLL:
     lib = _build.build("matmul_rate").lib
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.matmul_rate_launch.argtypes = [i, p, p, p, i, i, i, i, i, p]
+        lib.matmul_rate_launch.argtypes = [i, p, p, p, i, i, i, i, i, i, p]
         lib.matmul_rate_launch.restype = i
         lib._argtypes_set = True
     return lib
@@ -128,8 +181,8 @@ def matmul_rate(x: torch.Tensor, w: torch.Tensor, reps: int,
     ``x [M + reps, k]`` and ``w [k, N]``; the last step's ``[M, N]`` sum.
 
     CPU tensors take :func:`matmul_rate_plain`; CUDA tensors the kernel
-    (``k`` a multiple of the mma depth, 32 int8 or 16 bf16, ``N`` of 128),
-    or raise.
+    (``k`` a multiple of the instruction's depth, 32 int8 or 16 bf16, ``N``
+    of 128) on the operands laid out by :func:`rate_planes`, or raise.
     """
     name, m, k, n = _check_args(x, w, reps, steps)
     dev = x.device
@@ -143,17 +196,13 @@ def matmul_rate(x: torch.Tensor, w: torch.Tensor, reps: int,
                          f"{depth} and N of {BLOCK_N}, got k {k}, N {n}")
     if name == "int8" and k * reps * 128 * 128 >= 2 ** 31:
         raise ValueError(f"k * reps = {k * reps}: int32 sums could overflow")
-    if x.data_ptr() % 16:
-        raise ValueError("x must be 16-byte aligned (the kernel's vector "
-                         "loads)")
     lib = _library()
-    # the kernel's B operand is w in [N][k] layout
-    wt = w.t().contiguous()
+    xp, wp = rate_planes(x, w, reps)
     out = torch.empty((m, n), dtype=acc_dtype, device=dev)
     with torch.cuda.device(dev):
         err = lib.matmul_rate_launch(
-            list(DTYPES).index(name), x.data_ptr(), wt.data_ptr(),
-            out.data_ptr(), m, k, n, int(reps), int(steps),
+            list(DTYPES).index(name), xp.data_ptr(), wp.data_ptr(),
+            out.data_ptr(), m, k, n, int(reps), int(steps), xp.shape[1],
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "matmul_rate")
     matmul_rate.launches += 1
@@ -225,7 +274,8 @@ def time_rate(run: Callable[[int], torch.Tensor], ops_per_step: float,
               name: str) -> Tuple[float, float]:
     """``(TFLOP/s, ms per step)`` of ``run(steps)`` from the difference
     between ``HI`` and ``LO`` steps, best of two CUDA-event timings each
-    after a warm-up at ``HI``.  Raises if the time does not grow with the
+    after a warm-up at ``HI``, each queued behind a spin of the card
+    (``SLEEP_CYCLES``).  Raises if the time does not grow with the
     step count, or the rate passes 1.25x the card's peak: steps elided."""
     run(HI)
     torch.cuda.synchronize()
@@ -233,6 +283,9 @@ def time_rate(run: Callable[[int], torch.Tensor], ops_per_step: float,
     def t(steps: int) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        # the card busy first, so that the timed work is queued by the time
+        # it starts and the host's enqueueing is not timed with it
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         run(steps)
         end.record()

@@ -36,9 +36,12 @@ weights made from ``--seed`` (their BN stats fitted to random boards,
 
 ``select_walk`` and ``backup_paths`` (all three modes) are held against
 their plain versions and timed on trees of 64 simulations and on PUCT@400's
-own tree as its last simulation walks it (399 simulations; k-leaf 396),
-each beside its byte bound and a floor: an empty kernel's graph-replay time
-plus the longest path times one dependent L2 load, both measured in the run
+own tree as its last simulation walks it (399 simulations; k-leaf 396);
+``gumbel_select_walk`` on a Gumbel@64 tree at fan 1 and 16, and on the tree
+that Gumbel@64 with reuse budget 48 carries over three moves, as the last
+search's last simulation walks it.  Each is timed beside its byte bound and
+a floor: an empty kernel's graph-replay time plus the longest path times
+one dependent L2 load, both measured in the run
 (``tools/latency_floor.py``).
 
 Each path's launch counts are set to 0 just before it and read just after;
@@ -46,11 +49,13 @@ every kernel a path does not name must launch 0 times on it.  The k-leaf
 search and the reuse searches (with ``packed_advance_root`` between moves)
 are also held, on the kernels, against the same searches on the plain
 versions.  The towers' rates (K5, K4) are printed over the probe's
-``mma.sync`` rate at their own GEMM shape (M 57600, k 128); K5 is also
-held and timed at the k-leaf path's 1024 boards; the two tower libraries'
-``ptxas`` registers and spills are printed (a spill fails the run); and
-one Gumbel@64 search on ``fused_tower`` against the same search on
-``fused_tower_plain`` prints how many root actions differ (a measurement).
+``wgmma`` rate at their own GEMM shape (M 57600, k 128); K5 is also held
+and timed at the k-leaf path's 1024 boards; the ``ptxas`` registers and
+spills of the towers' convs, the Gumbel walk and the rate probe are printed
+(a spill fails the run); and one Gumbel@64 search on ``fused_tower``,
+``fused_tower_plain`` and the plain tower with float64 sums each prints how
+many root actions differ between the first two and how many each shares
+with the third (a measurement).
 Every phase prints its seconds.  Nothing is caught: a failed phase exits
 non-zero.  Without a CUDA card it exits 1 before any result.  The last lines
 are the card's ``nvidia-smi`` name and power limit, a JSON line with each
@@ -324,6 +329,49 @@ def hold_backup(tree, bargs, mode, floor):
     return got, row
 
 
+def hold_gumbel(tree, root, layout, depth, cv, cs, fan, floor):
+    """``gumbel_select_walk`` against its plain version on ``tree`` with the
+    forced root actions ``root`` (every output, tolerance 0), then its times
+    (CUDA-graph replay, one eager wrapper call, the plain version), bound
+    and floor.  Returns the row."""
+    walk = tk.gumbel_select_walk(tree, root, layout, depth, cv, cs, fan)
+    plain = tk.gumbel_select_walk_plain(tree, root, layout, depth, cv, cs,
+                                        fan)
+    for name, k, p in zip(("leaf", "action", "path_nodes", "path_actions",
+                           "path_len"), walk, plain):
+        if not torch.equal(k, p):
+            raise AssertionError(f"gumbel_select_walk fan {fan} {name}: "
+                                 f"kernel != plain (tolerance 0)")
+
+    def call():
+        return tk.gumbel_select_walk(tree, root, layout, depth, cv, cs, fan)
+
+    row = dict(max_abs_err=max_abs_err(walk, plain), ms=graph_ms(call, 50),
+               eager_ms=cuda_ms(call, 50),
+               plain_ms=cuda_ms(lambda: tk.gumbel_select_walk_plain(
+                   tree, root, layout, depth, cv, cs, fan), reps=5,
+                   warmup=1),
+               **path_stats(walk[4], floor))
+    row["bound_ms"], row["bound_by"] = gumbel_bound(layout, walk, depth)
+    log(f"gumbel_select_walk fan {fan} ({root.shape[0]} lanes): kernel == "
+        f"plain on every output, tolerance 0; {timing_summary(row)}")
+    return row
+
+
+class LastWalk:
+    """``gumbel_select_walk`` that keeps a copy of the tree and the root
+    actions of its ``at``-th call (the walk of that simulation)."""
+
+    def __init__(self, at: int):
+        self.at, self.calls, self.kept = at, 0, None
+
+    def __call__(self, packed, root, *args):
+        self.calls += 1
+        if self.calls == self.at:
+            self.kept = (packed.clone(), root.clone())
+        return tk.gumbel_select_walk(packed, root, *args)
+
+
 def timing_summary(row) -> str:
     return (f"path_len mean {row['path_len_mean']:.2f} max "
             f"{row['path_len_max']}; kernel {row['ms']:.4f} ms (CUDA graph "
@@ -370,14 +418,40 @@ def random_states(env, batch, plies, generator, dev):
     return states
 
 
-def ptxas_summary(lines):
-    """Each kernel's registers, and the spill bytes summed over them, from
-    ``nvcc -Xptxas -v`` (``_build.BuiltLibrary.ptxas``)."""
-    regs = [int(ln.split("Used ")[1].split()[0]) for ln in lines
-            if "Used " in ln and " registers" in ln]
-    spills = sum(int(ln.split(" bytes spill stores")[0].split()[-1])
-                 + int(ln.split(" bytes spill loads")[0].split()[-1])
-                 for ln in lines if "bytes spill stores" in ln)
+def ptxas_kernels(lines):
+    """``{function: [registers, spill bytes]}`` from ``nvcc -Xptxas -v``
+    (``_build.BuiltLibrary.ptxas``): each function's "Used N registers" and
+    its "spill stores" plus "spill loads" bytes, by its mangled name."""
+    out, name = {}, None
+    for ln in lines:
+        if "Compiling entry function '" in ln:
+            name = ln.split("'")[1]
+        elif "Function properties for " in ln:
+            name = ln.split("Function properties for ")[1].strip()
+        elif name and "bytes spill stores" in ln:
+            out.setdefault(name, [0, 0])[1] += (
+                int(ln.split(" bytes spill stores")[0].split()[-1])
+                + int(ln.split(" bytes spill loads")[0].split()[-1]))
+        elif name and "Used " in ln and " registers" in ln:
+            out.setdefault(name, [0, 0])[0] = int(
+                ln.split("Used ")[1].split()[0])
+    return out
+
+
+def check_spills(built, match: str):
+    """The registers of a library's kernels whose names hold ``match``, and
+    their spill bytes summed; raises on a spill."""
+    found = {k: v for k, v in ptxas_kernels(built.ptxas).items()
+             if match in k}
+    if not found:
+        raise AssertionError(f"{built.path.name}: no kernel named *{match}* "
+                             f"in ptxas's report")
+    regs = [r for r, _ in found.values()]
+    spills = sum(b for _, b in found.values())
+    log(f"{built.path.name}, {match}: {len(found)} kernels, registers {regs}, "
+        f"spill stores and loads {spills} bytes")
+    if spills:
+        raise AssertionError(f"{match}: ptxas spills {spills} bytes")
     return regs, spills
 
 
@@ -512,14 +586,18 @@ def main() -> int:
             log(f"{how}: {built.path.name}, nvcc {built.seconds:.2f} s")
             for line in built.ptxas:
                 log(f"  {line}")
-        for name, row in (("int8_tower", "int8_tower"),
-                          ("fused_net", "fused_tower")):
-            regs, spills = ptxas_summary(libs[name].ptxas)
-            rows[row].update(ptxas_registers=regs, ptxas_spill_bytes=spills)
-            log(f"{name}: {len(regs)} kernels, registers {regs}, spill "
-                f"stores and loads {spills} bytes")
-            if spills:
-                raise AssertionError(f"{name}: ptxas spills {spills} bytes")
+        # the towers' convs, and the two kernels redesigned last
+        for lib, match, row in (
+                ("int8_tower", "conv_kernel", "int8_tower"),
+                ("fused_net", "conv_kernel", "fused_tower"),
+                ("tree_kernels", "gumbel_select_walk_kernel",
+                 "gumbel_select_walk"),
+                ("matmul_rate", "rate_resident", "matmul_rate_int8"),
+                ("matmul_rate", "rate_streamed", "matmul_rate_int8")):
+            regs, spills = check_spills(libs[lib], match)
+            rows[row].setdefault("ptxas_registers", {})[match] = regs
+            rows[row]["ptxas_spill_bytes"] = (
+                rows[row].get("ptxas_spill_bytes", 0) + spills)
 
     with Phase("2b the 6x128 net: init_params, BN stats fitted to "
                "random_calib_obs boards"):
@@ -679,7 +757,10 @@ def gumbel_phases(args, env, net_cfg, weights, net, dev, rows, smi):
     cv, cs = GUMBEL_MCTS.gumbel_c_visit, GUMBEL_MCTS.gumbel_c_scale
     with Phase(f"6 gumbel_select_walk against its plain version (batch "
                f"{BATCH}, fan 1 and {FAN}, {layout.n_nodes} nodes, depth cap "
-               f"{depth})"):
+               f"{depth}), on a tree of {GUMBEL_SIMS} simulations and on the "
+               f"tree carried with reuse budget {REUSE_BUDGET} over "
+               f"{REUSE_MOVES} moves as its last simulation walks it"):
+        floor = latency_floor()
         gen = phase_gen(args.seed, 6, dev)
         states = random_states(env, BATCH, 4, gen, dev)
         tree = run_gumbel_packed_with_tree(env, GUMBEL_MCTS, fused_eval,
@@ -693,46 +774,36 @@ def gumbel_phases(args, env, net_cfg, weights, net, dev, rows, smi):
         for fan in (1, FAN):
             # distinct legal root actions per tree, as one halving round has
             root = order[:, :fan].reshape(-1).int().contiguous()
-            walk = tk.gumbel_select_walk(tree, root, layout, depth, cv, cs,
-                                         fan)
-            plain = tk.gumbel_select_walk_plain(tree, root, layout, depth, cv,
-                                                cs, fan)
-            for name, k, p in zip(("leaf", "action", "path_nodes",
-                                   "path_actions", "path_len"), walk, plain):
-                if not torch.equal(k, p):
-                    raise AssertionError(f"gumbel_select_walk fan {fan} "
-                                         f"{name}: kernel != plain "
-                                         f"(tolerance 0)")
-            err = max_abs_err(walk, plain)
-            plen = walk[4]
-
-            def call(root=root, fan=fan):
-                return tk.gumbel_select_walk(tree, root, layout, depth, cv,
-                                             cs, fan)
-
-            ms = graph_ms(call, reps=50)
-            eager_ms = cuda_ms(call, reps=50)
-            plain_ms = cuda_ms(lambda root=root, fan=fan:
-                               tk.gumbel_select_walk_plain(
-                                   tree, root, layout, depth, cv, cs, fan),
-                               reps=5, warmup=1)
-            bound_ms, bound_by = gumbel_bound(layout, walk, depth)
-            log(f"gumbel_select_walk fan {fan} ({BATCH * fan} lanes): kernel "
-                f"== plain on every output, tolerance 0 (max abs err {err}); "
-                f"path_len mean {plen.float().mean():.2f} max "
-                f"{int(plen.max())}; kernel {ms:.4f} ms (CUDA graph replay; "
-                f"eager wrapper call {eager_ms:.4f} ms), plain "
-                f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+            row = hold_gumbel(tree, root, layout, depth, cv, cs, fan, floor)
             if fan == 1:
-                rows["gumbel_select_walk"].update(
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                rows["gumbel_select_walk"].update(row, library_ms=None)
             else:
-                rows["gumbel_select_walk"].update(
-                    fan16_ms=ms, fan16_plain_ms=plain_ms,
-                    fan16_bound_ms=bound_ms)
-        log("no single PyTorch call computes the walk, so library_ms is null")
+                rows["gumbel_select_walk"][f"fan{FAN}"] = row
         del tree
+
+        reuse = dataclasses.replace(GUMBEL_MCTS, reuse_budget=REUSE_BUDGET)
+        last = LastWalk(GUMBEL_SIMS)
+        carry = init_packed_carry(env, reuse, states)
+        for move in range(REUSE_MOVES):
+            ops = (tk.TreeOps(tk.select_walk, tk.backup_paths, last)
+                   if move == REUSE_MOVES - 1 else tk.KERNELS)
+            _, _, act, carry = run_gumbel_packed_with_tree(
+                env, reuse, fused_eval, folded, states, gen, ops=ops,
+                carry=carry)
+            if move < REUSE_MOVES - 1:
+                act = torch.where(states.done, 0, act)
+                carry = packed_advance_root(env, reuse, carry, act)
+                states = env.step_safe(states, act)
+        tree, root = last.kept
+        log(f"carried the tree: Gumbel@{GUMBEL_SIMS} m={GUMBEL_M} with reuse "
+            f"budget {REUSE_BUDGET}, {REUSE_MOVES} searches with "
+            f"packed_advance_root between them; the last search's "
+            f"{GUMBEL_SIMS}th walk, packed {tuple(tree.shape)}")
+        rows["gumbel_select_walk"][f"reuse{REUSE_BUDGET}"] = hold_gumbel(
+            tree, root, tk.packed_layout(env.num_actions, reuse.node_capacity),
+            reuse.depth_limit, cv, cs, 1, floor)
+        log("no single PyTorch call computes the walk, so library_ms is null")
+        del tree, carry
 
     with Phase(f"7 fused_tower against its plain version (batch {BATCH}, "
                f"6x128, {BOARD}x{BOARD}, bf16 inputs, fp32 sums)"):
@@ -814,29 +885,45 @@ def gumbel_phases(args, env, net_cfg, weights, net, dev, rows, smi):
         log(f"Gumbel search: actions, pi_target and root_q equal exactly "
             f"over {PI_BATCH} lanes")
 
-    with Phase(f"8b C4: a Gumbel@{GUMBEL_SIMS} m={GUMBEL_M} search (batch "
-               f"{BATCH}) on fused_tower and on fused_tower_plain, the same "
-               f"states and generator: root actions that differ"):
+    with Phase(f"8b C6: a Gumbel@{GUMBEL_SIMS} m={GUMBEL_M} search (batch "
+               f"{BATCH}) on fused_tower, on fused_tower_plain and on the "
+               f"plain tower with float64 sums, the same states and "
+               f"generator: root actions that differ, and that each shares "
+               f"with float64"):
         states = random_states(env, BATCH, 6, phase_gen(args.seed, 208, dev),
                                dev)
 
-        def plain_eval(bundle, obs):
-            logits, value = fn.folded_apply_plain(net_cfg, bundle, obs)
-            return torch.softmax(logits, dim=-1), value
+        def plain_eval(sum_dtype):
+            def eval_fn(bundle, obs):
+                logits, value = fn.folded_apply_plain(net_cfg, bundle, obs,
+                                                      sum_dtype)
+                return torch.softmax(logits, dim=-1), value
+            return eval_fn
 
         out = {}
         for label, eval_fn in (("fused_tower", fused_eval),
-                               ("fused_tower_plain", plain_eval)):
+                               ("fused_tower_plain",
+                                plain_eval(torch.float32)),
+                               ("float64", plain_eval(torch.float64))):
             g = phase_gen(args.seed, 308, dev)
             out[label] = run_gumbel_mcts(env, GUMBEL_MCTS, eval_fn, folded,
                                          states, g)
-        kern, plain = out["fused_tower"], out["fused_tower_plain"]
-        differ = int((kern[2] != plain[2]).sum())
-        pi_err = float((kern[0] - plain[0]).abs().max())
-        rows["fused_tower"]["c4_root_actions_differ"] = differ
-        log(f"C4: {differ} of {BATCH} root actions differ between the "
-            f"search on fused_tower and on fused_tower_plain (pi_target max "
-            f"abs difference {pi_err}); a measurement, no tolerance")
+        kern, plain, f64 = (out[k][2] for k in ("fused_tower",
+                                                "fused_tower_plain",
+                                                "float64"))
+        c6 = dict(root_actions_differ=int((kern != plain).sum()),
+                  kernel_shares_with_float64=int((kern == f64).sum()),
+                  plain_shares_with_float64=int((plain == f64).sum()))
+        pi_err = float((out["fused_tower"][0]
+                        - out["fused_tower_plain"][0]).abs().max())
+        rows["fused_tower"]["c6"] = c6
+        log(f"C6: {c6['root_actions_differ']} of {BATCH} root actions differ "
+            f"between the search on fused_tower and on fused_tower_plain "
+            f"(pi_target max abs difference {pi_err}); the search on the "
+            f"float64 tower shares {c6['kernel_shares_with_float64']} of "
+            f"{BATCH} with fused_tower's and "
+            f"{c6['plain_shares_with_float64']} with fused_tower_plain's; a "
+            f"measurement, no tolerance")
 
     sp_cfg = SelfPlayConfig(batch_games=BATCH, mcts=GUMBEL_MCTS,
                             max_moves=MOVES)
@@ -1307,7 +1394,7 @@ def probe_phases(args, net_cfg, dev, rows, smi):
             library = results[f"torch_{name}_k{k}_m{m}"]["tflops"]
             rows[f"matmul_rate_{name}"][f"{tower}_over_probe"] = rate / probe
             log(f"{tower}: {rate:.2f} T/s in this run = {rate / probe:.4f} of "
-                f"the probe's {name} mma.sync rate {probe:.2f} T/s at M {m}, "
+                f"the probe's {name} wgmma rate {probe:.2f} T/s at M {m}, "
                 f"k {k}, reps {reps} (the library's {library:.2f} T/s) on "
                 f"{smi}")
 

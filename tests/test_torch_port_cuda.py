@@ -39,7 +39,14 @@ from alphazero_gomoku_tpu_torch.search.tree_packed import (
 )
 from alphazero_gomoku_tpu_torch.tools import matmul_rate as mr
 
-from torch_port_edges import DEPTH, EDGE_CASES, N_NODES, edge_paths, edge_tree
+from torch_port_edges import (
+    DEPTH,
+    EDGE_CASES,
+    N_NODES,
+    edge_paths,
+    edge_roots,
+    edge_tree,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -277,6 +284,33 @@ def test_gumbel_select_walk_kernel_equals_plain(fan):
         for name, x, y in zip(("leaf", "action", "path_nodes",
                                "path_actions", "path_len"), got, want):
             assert torch.equal(x, y), name
+
+
+@pytest.mark.parametrize("batch", EDGE_BATCHES)
+@pytest.mark.parametrize("size", EDGE_SIZES)
+@pytest.mark.parametrize("fan", [1, 16])
+def test_gumbel_select_walk_kernel_equals_plain_on_edge_trees(fan, size,
+                                                              batch):
+    """The edge trees of ``tests/torch_port_edges.py`` (values from 1e-30 to
+    1e30, priors of 1e-30, clamped and negative children, terminal nodes,
+    cycles into the depth cap) with legal, illegal, negative and too-large
+    forced root actions; 4, 8 and 16 columns a thread."""
+    dev = _card()
+    tree = edge_tree(batch, size, 7 * size + batch)
+    root = torch.from_numpy(edge_roots(tree, size, fan, batch)).to(dev)
+    packed = torch.from_numpy(tree).to(dev)
+    layout = tk.packed_layout(size * size, N_NODES)
+    for depth in (DEPTH, 40):
+        tk.reset_launch_counts()
+        got = tk.gumbel_select_walk(packed, root, layout, depth, 50.0, 1.0,
+                                    fan)
+        want = tk.gumbel_select_walk_plain(packed, root, layout, depth, 50.0,
+                                           1.0, fan)
+        torch.cuda.synchronize()
+        assert tk.gumbel_select_walk.launches == 1
+        for name, x, y in zip(("leaf", "action", "path_nodes",
+                               "path_actions", "path_len"), got, want):
+            assert torch.equal(x, y), (depth, name)
 
 
 def test_exp_log_f32_on_the_card_equal_the_cpu():

@@ -143,3 +143,51 @@ def test_wrapper_refuses_bad_inputs():
         mr.matmul_rate(x, w, 4, 0)
     with pytest.raises(RuntimeError, match="card"):
         mr.measure(device="cpu")
+
+
+@pytest.mark.parametrize("k,reps", list(mr.SHAPES) + [(32, 1), (64, 3)])
+@pytest.mark.parametrize("dtype", ["int8", "bf16"])
+def test_rate_planes_lay_out_the_kernels_operands(dtype, k, reps):
+    """Plane ``c`` holds 16 bytes of K of every row, rows past ``x``'s zero;
+    each slice of ``w`` holds its 128 columns' 16 bytes a chunk."""
+    g = torch.Generator().manual_seed(k + reps)
+    m = 300
+    x, w = mr.make_inputs(m, k, reps, g, "cpu")[dtype]
+    xp, wp = mr.rate_planes(x, w, reps)
+    e = 16 // x.element_size()
+    rows = mr.plane_rows(m, reps)
+    assert rows == 3 * mr.TILE_M + -(-(reps - 1) // 8) * 8
+    assert xp.shape == (k // e, rows, e) and xp.dtype == x.dtype
+    assert wp.shape == (1, k // e, mr.BLOCK_N, e) and wp.dtype == w.dtype
+    for c in (0, k // e - 1):
+        assert torch.equal(xp[c, :m + reps], x[:, c * e:(c + 1) * e])
+        assert torch.equal(wp[0, c], w[c * e:(c + 1) * e].t())
+    assert not xp[:, m + reps:].any()
+
+
+@pytest.mark.parametrize("steps", [1, 3])
+@pytest.mark.parametrize("k,reps", list(mr.SHAPES))
+@pytest.mark.parametrize("dtype", ["int8", "bf16"])
+def test_planes_plain_equals_plain_and_xla_rate(tool_inputs, dtype, k, reps,
+                                                steps):
+    """The product over the kernel's planes against the plain version and
+    the JAX tool's ``xla_rate``: int8 exactly, bf16 within ``bf16_bound``."""
+    xi, wi, xb, wb = tool_inputs[(k, reps)]
+    x, w = (xi, wi) if dtype == "int8" else (xb, wb)
+    in_dtype, acc_dtype = ((jnp.int8, jnp.int32) if dtype == "int8"
+                           else (jnp.bfloat16, jnp.float32))
+    run = JAX_TOOL.xla_rate(in_dtype, acc_dtype, k, reps, 0)
+    want = np.asarray(run(x, w, jnp.asarray([steps], jnp.int32)))
+    xt, wt = _to_torch(x), _to_torch(w)
+    got = mr.matmul_rate_planes_plain(*mr.rate_planes(xt, wt, reps),
+                                      JAX_TOOL.M, reps, steps)
+    plain = mr.matmul_rate_plain(xt, wt, reps, steps)
+    assert got.shape == plain.shape and got.dtype == plain.dtype
+    if dtype == "int8":
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert torch.equal(got, plain)
+    else:
+        bound = mr.bf16_bound(xt, wt, reps).numpy()
+        for ref in (want.astype(np.float64), plain.double().numpy()):
+            err = np.abs(got.double().numpy() - ref)
+            assert (err <= bound).all(), float((err / bound).max())

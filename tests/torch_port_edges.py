@@ -19,6 +19,9 @@ cases that a backup must get right:
   - ``clamped_nodes``: path nodes < 0 or >= ``n_nodes``, which it clamps;
   - ``repeated_entry``: hops that clamp to one node, some with one action,
     so that one entry is updated by several hops in path order.
+
+The Gumbel walk's forced root actions (``edge_roots``) are legal, illegal
+(a prior of -1), negative, or at or beyond ``num_actions``.
 """
 
 import numpy as np
@@ -27,6 +30,7 @@ N_NODES = 7
 DEPTH = 8
 EDGE_CASES = ("slot_on_path", "skipped_actions", "padded_action",
               "clamped_nodes", "repeated_entry")
+ROOT_KINDS = ("legal", "illegal", "negative", "beyond")
 
 
 def _seg(size):
@@ -125,3 +129,27 @@ def edge_paths(case, batch, size, seed, n_nodes=N_NODES, depth=DEPTH):
                 values=rng.uniform(-1, 1, batch).astype(np.float32),
                 expanding=rng.random(batch) < 0.7,
                 priors=priors, done=rng.random(batch) < 0.2, slot=slot)
+
+
+def edge_roots(packed, size, fan, seed):
+    """Forced root actions ``[batch * fan]`` int32 for the Gumbel walk on
+    ``packed`` (an :func:`edge_tree`): lane ``l`` takes kind
+    ``ROOT_KINDS[l % 4]``, a legal or an illegal action of its tree's root
+    (any action if the root has none of that kind), a negative one, or one
+    in ``[num_actions, seg + 8)``."""
+    rng = np.random.default_rng(seed)
+    a, seg = size * size, _seg(size)
+    batch = packed.shape[0]
+    prior = packed.reshape(batch, -1, 8, seg)[:, 0, 2, :a]
+    roots = np.empty(batch * fan, np.int64)
+    for lane in range(batch * fan):
+        kind = ROOT_KINDS[lane % len(ROOT_KINDS)]
+        legal = prior[lane // fan] >= 0
+        if kind in ("legal", "illegal"):
+            pool = np.flatnonzero(legal if kind == "legal" else ~legal)
+            roots[lane] = rng.choice(pool) if pool.size else rng.integers(a)
+        elif kind == "negative":
+            roots[lane] = rng.choice([-1, -2, -33, -1000])
+        else:
+            roots[lane] = rng.integers(a, seg + 8)
+    return roots.astype(np.int32)
