@@ -7,11 +7,14 @@ docstring names its counterpart.
 
 Ported so far (the self-play main paths: PUCT@400, bench config #3, on the
 float32 net or the int8 tower, and Gumbel@64 on the fused bf16 tower, config
-#6's search):
+#6's search; and the training iteration around them):
 
-  - ``games``    : batched Gomoku transition functions on tensors.
-  - ``models``   : the residual policy/value net as an ``nn.Module`` (eval),
-                   and ``make_inference``, which picks an inference mode.
+  - ``games``    : batched Gomoku transition functions on tensors, and the
+                   NumPy host engines.
+  - ``models``   : the residual policy/value net as an ``nn.Module`` (train
+                   and eval), ``make_inference``, which picks an inference
+                   mode, the losses, the optimizer and ``train_step``,
+                   ``AZModel`` and AZTPU1 checkpoints.
   - ``search``   : PUCT and Gumbel sequential halving on the packed
                    node-tile tree.
   - ``ops``      : the tree kernels (``csrc/tree_kernels.cu``: PUCT walk,
@@ -20,12 +23,19 @@ float32 net or the int8 tower, and Gumbel@64 on the fused bf16 tower, config
                    (``csrc/int8_tower.cu``) with their plain PyTorch
                    versions, BN folding, int8 quantization, and the ``nvcc``
                    build.
-  - ``selfplay`` : the lockstep self-play loop.
+  - ``selfplay`` : the lockstep self-play loop, the replay buffer, the arena
+                   and the training loop (``train_alphazero``).
+  - ``cli``      : the training CLI (``python -m
+                   alphazero_gomoku_tpu_torch.cli.train``).
   - ``tools``    : the tensor-core rate probe (``csrc/matmul_rate.cu``), the
                    counterpart of the JAX repo's ``tools/mosaic_matmul_rate.py``.
   - ``repro``    : the width-1 slice write through a scratch
                    (``csrc/width1_slice.cu``), the counterpart of
                    ``repro/mosaic_width1_slice_hang.py``.
+
+The training step differentiates the ``ResNet`` with autograd (cuDNN's
+convolutions): no Pallas kernel of the JAX package has a backward, and its
+train step is plain XLA.
 
 Entry points take ``device=None``, which means the CUDA card; with no card
 they raise.  Tests pass ``device="cpu"``, where every kernel wrapper runs its

@@ -54,6 +54,20 @@ class GomokuEnv:
     def num_actions(self) -> int:
         return self.size * self.size
 
+    @property
+    def obs_channels(self) -> int:
+        return 3
+
+    @property
+    def obs_plane_scales(self):
+        """Per-plane integer scales of the exact uint8 replay storage
+        (``selfplay/buffer.py``): every plane is binary, scale 1."""
+        return (1.0, 1.0, 1.0)
+
+    @property
+    def name(self) -> str:
+        return "gomoku"
+
     def init_batch(self, batch: int, device=None) -> GomokuState:
         dev = resolve_device(device)
 

@@ -357,6 +357,37 @@ def make_int8_eval_fn(cfg: NetConfig):
 # ----------------------------------------------------------------------
 # calibration boards
 # ----------------------------------------------------------------------
+def random_play_calib_obs(cfg: NetConfig, game: str = "gomoku",
+                          n: int = 256, seed: int = 0) -> np.ndarray:
+    """Calibration boards from host games of random legal moves (numpy NHWC
+    float32), the same numbers as the JAX package's ``random_play_calib_obs``
+    (``ops/int8_net.py:411-433`` there) for the same arguments.
+
+    Random play visits plausible stone densities and alternation patterns;
+    the training loop calibrates on them while its replay buffer is still
+    too small to sample.  Only Gomoku is ported (Pente: ROADMAP Queue A
+    item 9).
+    """
+    from alphazero_gomoku_tpu_torch.games.host import Gomoku
+    if game != "gomoku":
+        raise NotImplementedError(
+            f"random_play_calib_obs: game {game!r} is not ported (Pente is "
+            f"ROADMAP Queue A item 9)")
+    rng = np.random.default_rng(seed)
+    obs = []
+    while len(obs) < n:
+        env = Gomoku(cfg.board_size)
+        for _ in range(int(rng.integers(4, 60))):
+            moves = env.get_legal_moves()
+            if not moves:
+                break
+            env.do_move(moves[rng.integers(len(moves))])
+            if env.check_winner():
+                break
+            obs.append(env.get_encoded_state().transpose(1, 2, 0))
+    return np.stack(obs[:n]).astype(np.float32)
+
+
 def random_calib_obs(cfg: NetConfig, n: int = 256, cin: int = 3,
                      seed: int = 0) -> np.ndarray:
     """Synthetic calibration boards: random disjoint stone fills (numpy).

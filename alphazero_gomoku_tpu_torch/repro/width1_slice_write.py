@@ -8,9 +8,10 @@ width-1 write that never finished compiling) or, with ``--ok``, its columns
 copies the scratch out.
 
   - :func:`width1_slice_write` runs that function as the CUDA kernel in
-    ``csrc/width1_slice.cu`` on CUDA tensors (each block holds one ``b``'s
-    ``[G, R]`` slab in shared memory, rewrites the slice there and copies
-    the slab out), and as :func:`width1_slice_write_plain` on CPU tensors.
+    ``csrc/width1_slice.cu`` on CUDA tensors (each block stages one
+    ``(b, g)`` row in shared memory by a bulk copy on an mbarrier, rewrites
+    the slice there and copies the row out by a bulk copy), and as
+    :func:`width1_slice_write_plain` on CPU tensors.
     It counts its kernel launches in ``width1_slice_write.launches``.
   - :func:`main` is the repro's entry point:
 
@@ -33,7 +34,7 @@ from alphazero_gomoku_tpu_torch.ops import _build
 from alphazero_gomoku_tpu_torch.ops.tree_kernels import _check, _raise_on
 
 B, G, R, C = 8, 8, 1152, 1024      # the JAX repro's shape and column
-SMEM_LIMIT = 232448                # a block's most shared memory (227 KB)
+MAX_ROW = 57344                    # floats of a row a block stages (224 KiB)
 
 
 def _check_args(x: torch.Tensor, c: int):
@@ -71,7 +72,8 @@ def width1_slice_write(x: torch.Tensor, c: int = C,
     (``ok``: columns ``c:``) replaced by ``x * 0.5 + 1``, through a scratch.
 
     CPU tensors take :func:`width1_slice_write_plain`; CUDA tensors the
-    kernel (a ``[G, R]`` slab of at most 227 KB), or raise.
+    kernel (rows of at most ``MAX_ROW`` floats, ``x`` starting on a 16-byte
+    boundary), or raise.
     """
     _check_args(x, c)
     dev = x.device
@@ -80,9 +82,12 @@ def width1_slice_write(x: torch.Tensor, c: int = C,
     if dev.type != "cuda":
         raise ValueError(f"width1_slice_write: unsupported device {dev}")
     b, g, r = x.shape
-    if g * r * 4 > SMEM_LIMIT:
-        raise ValueError(f"a [G, R] = [{g}, {r}] float32 slab is over a "
-                         f"block's {SMEM_LIMIT} bytes of shared memory")
+    if r > MAX_ROW:
+        raise ValueError(f"a row of R = {r} floats is over the {MAX_ROW} "
+                         f"a block stages in shared memory")
+    if x.data_ptr() % 16:
+        raise ValueError("x must start on a 16-byte boundary for the bulk "
+                         "copies")
     lib = _library()
     out = torch.empty_like(x)
     with torch.cuda.device(dev):

@@ -39,19 +39,23 @@ noise of a PUCT search with root noise on, or a Gumbel search's root
 uniforms); with PUCT, the ``[B, A]`` sampling uniforms; on an opening ply,
 the ``[B, A]`` opening uniforms.
 
-``collect_examples``, the symmetry augmentation and
-``play_games_continuous`` wait for the training slice (ROADMAP Queue A
-item 8).
+``encode_board_np`` and ``collect_examples`` (``runner.py:319-405`` there)
+flatten the trajectories into training samples on the host, with the
+value-target mix, the PCR full-ply records and the 8 symmetries.  The
+continuous (auto-reset) self-play, ``play_games_continuous`` and
+``collect_examples_continuous``, is not ported yet (ROADMAP Queue A).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from alphazero_gomoku_tpu_torch.device import resolve_device
+from alphazero_gomoku_tpu_torch.ops.symmetry import expand_symmetries_batch_np
 from alphazero_gomoku_tpu_torch.search.gumbel import run_gumbel_mcts
 from alphazero_gomoku_tpu_torch.search.tree import (
     EvalFn,
@@ -273,3 +277,55 @@ def play_games(env, cfg: SelfPlayConfig, eval_fn: EvalFn, net_params,
         winners=states.winner,
         moves_played=states.move_count,
     )
+
+
+def encode_board_np(boards: np.ndarray, players: np.ndarray) -> np.ndarray:
+    """Raw boards ``[N, H, W]`` and the players to move ``[N]`` -> NHWC
+    float32 planes (the side to move's stones, the opponent's, ones), as
+    ``GomokuEnv.encode``; on the host."""
+    p = players.reshape(players.shape + (1, 1))
+    plane_me = (boards == p).astype(np.float32)
+    plane_opp = (boards == (3 - p)).astype(np.float32)
+    return np.stack([plane_me, plane_opp, np.ones_like(plane_me)], axis=-1)
+
+
+def collect_examples(traj: Trajectories, use_symmetries: bool = True,
+                     value_target_mix: float = 0.0
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, dict]:
+    """Flatten trajectories into training samples (host side).
+
+    z is +1 / -1 / 0 from the side to move's view; with
+    ``value_target_mix`` the target is ``(1 - mix) * z + mix * root_q``.
+    Inactive records (finished games, the random opening) are dropped
+    before encoding; a PCR cheap ply keeps its all-zero pi.  With
+    ``use_symmetries`` every sample comes 8 times, variant-major.
+
+    Returns ``(states [N, H, W, 3], pis [N, A], zs [N], winner_stats)``.
+    The JAX function's ``capture_planes`` (Pente's) waits for Pente (ROADMAP
+    Queue A item 9).
+    """
+    boards = traj.boards.cpu().numpy()
+    players = traj.players.cpu().numpy()
+    pis = traj.pis.cpu().numpy()
+    active = traj.active.cpu().numpy()
+    winners = traj.winners.cpu().numpy()
+
+    t, b = active.shape
+    win_per_record = np.broadcast_to(winners[None, :], (t, b))
+    z = np.where(win_per_record == 0, 0.0,
+                 np.where(win_per_record == players, 1.0, -1.0)
+                 ).astype(np.float32)
+    if value_target_mix > 0.0:
+        root_qs = traj.root_qs.cpu().numpy()
+        z = (1.0 - value_target_mix) * z + value_target_mix * root_qs
+
+    mask = active.reshape(-1)
+    states = encode_board_np(boards.reshape(-1, *boards.shape[2:])[mask],
+                             players.reshape(-1)[mask])
+    flat_pis = pis.reshape(-1, pis.shape[-1])[mask].astype(np.float32)
+    flat_z = z.reshape(-1)[mask]
+    if use_symmetries:
+        states, flat_pis = expand_symmetries_batch_np(states, flat_pis)
+        flat_z = np.tile(flat_z, 8)
+    stats = {k: int((winners == k).sum()) for k in (0, 1, 2)}
+    return states, flat_pis, flat_z, stats

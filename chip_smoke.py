@@ -32,7 +32,18 @@ weights made from ``--seed`` (their BN stats fitted to random boards,
     entry point's work: every mode at M 2040 and 57600, k 128 and 1152):
     kernel ``matmul_rate`` in its int8 and bf16 forms, counted apart;
   - the width-1 slice-write repro (``repro/width1_slice_write.py``'s
-    ``main``, both variants): kernel ``width1_slice_write``.
+    ``main``, both variants): kernel ``width1_slice_write``;
+  - the training iteration (``selfplay/loop.train_alphazero``) with the
+    shipped recipe's search, Gumbel@64, m=16, reuse 48, on the int8 tower
+    (``inference="int8t"``), 6x128: kernels ``gumbel_select_walk``,
+    ``backup_paths`` and ``int8_tower`` (its reductions are in
+    ``training_phases``'s docstring).
+
+``width1_slice_write`` is held (exactly) on the repro's shape and on rows
+whose byte count is not a multiple of 16, with C at both edges, and timed
+by graph replay beside an empty kernel's replay, its floor.  One float32
+``train_step`` at 6x128, batch 256, is held against the same step in
+float64 on the card, and twenty steps on one batch must lower the loss.
 
 ``select_walk`` and ``backup_paths`` (all three modes) are held against
 their plain versions and timed on trees of 64 simulations and on PUCT@400's
@@ -68,8 +79,11 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -81,6 +95,15 @@ from alphazero_gomoku_tpu_torch.models import (
     fit_batch_stats,
     init_params,
     make_eval_fn,
+    params_from_jax,
+)
+from alphazero_gomoku_tpu_torch.models import checkpoint as ckpt
+from alphazero_gomoku_tpu_torch.models.model import (
+    AdamState,
+    AZModel,
+    Optimizer,
+    split_state,
+    train_step,
 )
 from alphazero_gomoku_tpu_torch.ops import _build
 from alphazero_gomoku_tpu_torch.ops import fused_net as fn
@@ -102,7 +125,11 @@ from alphazero_gomoku_tpu_torch.search.tree_packed import (
     run_mcts_packed,
     run_mcts_packed_with_tree,
 )
-from alphazero_gomoku_tpu_torch.selfplay import SelfPlayConfig, play_games
+from alphazero_gomoku_tpu_torch.selfplay import (
+    SelfPlayConfig,
+    play_games,
+    train_alphazero,
+)
 from alphazero_gomoku_tpu_torch.tools import latency_floor as lf
 from alphazero_gomoku_tpu_torch.tools import matmul_rate as mr
 
@@ -150,6 +177,24 @@ BF16_VS_F32_TOL = 0.05
 # values by 0.11-0.19 over seeds 0-7 on an H100, as it does in the JAX
 # package's int8 forward, which this one equals bit for bit.  It is printed.
 INT8_VS_F32 = {"logit_corr": 0.98, "value_corr": 0.98}
+# the slice write's extra shapes: rows of 4613 and 7 floats (not a multiple
+# of 16 bytes, so unaligned heads and tails), C at both edges of the row
+W1_SHAPES = (((2, 3, 4613), 0), ((2, 3, 4613), 4612), ((8, 8, 7), 0),
+             ((8, 8, 7), 6), ((3, 5, 1), 0))
+# the training step: float32 against float64, one step from a fresh
+# optimizer state, where Adam's step is about -lr * g' / (|g'| + eps) with
+# g' its input (the clipped gradient plus the weight decay).  Where the two
+# g' (a, b) agree in sign and |a| > |a - b| + 100 eps, the two steps differ
+# by lr * eps * |a - b| / ((|a| + eps)(|b| + eps)) < lr * eps / (100 eps) =
+# lr / 100, plus float32's rounding of p + u (2.4e-7 for |p| < 2); the
+# others (within float32's error of zero, or across a ReLU's kink) by up to
+# 2 lr
+TRAIN_BATCH, TRAIN_STEPS = 256, 20
+STEP_TOL, CHAOTIC_TOL = 1e-5 + 2.4e-7, 2e-3 + 1e-5
+# the training iteration (training_phases)
+TRAIN_MOVES = 16        # self-play move cap of each of its iterations
+TRAIN_BUFFER = 60000    # the CLI's --buffer-size default
+ARENA_GAMES = 16
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, FP32 FLOP/s
 # (CUDA cores); the dense bf16 FLOP/s and int8 OP/s of its tensor cores are
@@ -701,6 +746,7 @@ def main() -> int:
     extension_phases(args, env, net_cfg, weights, net, dev, rows, smi,
                      int8_bundle, int8_rate)
     probe_phases(args, net_cfg, dev, rows, smi)
+    training_phases(args, env, net_cfg, dev, rows, smi)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi())
@@ -734,12 +780,16 @@ def launch_counts():
             "width1_slice_write": ws.width1_slice_write.launches}
 
 
-def expect_launches(path: str, got, want):
-    """``want`` gives the kernels a path launches; every other one must
-    launch 0 times."""
+def expect_launches(path: str, got, want, some=()):
+    """``want`` gives the kernels a path launches and how often, ``some``
+    those it launches a number of times the data decides (at least once);
+    every other one must launch 0 times."""
     log(f"launches on the {path}: {got}")
     for name, n in got.items():
-        if n != want.get(name, 0):
+        if name in some:
+            if n < 1:
+                raise AssertionError(f"{path}: {name} never launched")
+        elif n != want.get(name, 0):
             raise AssertionError(f"{path}: {name} launched {n} times, "
                                  f"expected {want.get(name, 0)}")
 
@@ -1400,30 +1450,43 @@ def probe_phases(args, net_cfg, dev, rows, smi):
 
     b, g, r, c = ws.B, ws.G, ws.R, ws.C
     with Phase(f"20a width1_slice_write against its plain version ([{b}, {g}, "
-               f"{r}] float32, column {c}, both variants, tolerance 0)"):
+               f"{r}] float32, column {c}, and {len(W1_SHAPES)} shapes with "
+               f"unaligned rows or C at an edge; both variants, tolerance "
+               f"0)"):
         x = torch.randn((b, g, r), generator=phase_gen(args.seed, 20, dev),
                         device=dev)
         times, w1_err = {}, 0.0
+        for shape, col in ((x.shape, c),) + W1_SHAPES:
+            xs = x if shape == x.shape else torch.randn(
+                shape, generator=phase_gen(args.seed, 120, dev), device=dev)
+            for ok in (False, True):
+                got = ws.width1_slice_write(xs, col, ok)
+                err = max_abs_err([got],
+                                  [ws.width1_slice_write_plain(xs, col, ok)])
+                w1_err = max(w1_err, err)
+                if not err == 0.0:
+                    raise AssertionError(
+                        f"width1_slice_write {tuple(shape)} C={col} ok={ok}: "
+                        f"max abs err {err} (tolerance 0)")
+                if torch.equal(got, xs):
+                    raise AssertionError("width1_slice_write changed nothing")
+        log(f"width1_slice_write == plain on {1 + len(W1_SHAPES)} shapes, "
+            f"both variants")
+        # the floor: an empty kernel's replay, in this run
+        floor_ms = lf.empty_ms()
         for ok in (False, True):
-            got = ws.width1_slice_write(x, c, ok)
-            err = max_abs_err([got], [ws.width1_slice_write_plain(x, c, ok)])
-            w1_err = max(w1_err, err)
-            if not err == 0.0:
-                raise AssertionError(f"width1_slice_write ok={ok}: max abs err"
-                                     f" {err} (tolerance 0)")
-            if torch.equal(got, x):
-                raise AssertionError("width1_slice_write changed nothing")
-
             def call(ok=ok):
                 return ws.width1_slice_write(x, c, ok)
 
             times[ok] = (graph_ms(call, reps=50), cuda_ms(call, reps=50),
                          cuda_ms(lambda ok=ok: ws.width1_slice_write_plain(
                              x, c, ok), reps=20))
-            log(f"width1_slice_write {'ok' if ok else 'width-1'}: kernel == "
-                f"plain, tolerance 0; kernel {times[ok][0]:.4f} ms (CUDA "
-                f"graph replay; eager wrapper call {times[ok][1]:.4f} ms), "
-                f"plain {times[ok][2]:.4f} ms")
+            log(f"width1_slice_write {'ok' if ok else 'width-1'}: kernel "
+                f"{times[ok][0]:.5f} ms (CUDA graph replay; eager wrapper "
+                f"call {times[ok][1]:.5f} ms), plain {times[ok][2]:.5f} ms; "
+                f"an empty kernel {floor_ms:.5f} ms (graph replay), "
+                f"{(times[ok][0] - floor_ms) * 1e3:.3f} us above it, on "
+                f"{smi}")
 
     with Phase("20b slice-write repro path: repro.width1_slice_write.main, "
                "both variants"):
@@ -1441,12 +1504,209 @@ def probe_phases(args, net_cfg, dev, rows, smi):
             ms=times[False][0], eager_ms=times[False][1],
             plain_ms=times[False][2], bound_ms=bound_ms, bound_by=bound_by,
             library_ms=None, ok_ms=times[True][0],
-            ok_plain_ms=times[True][2])
+            ok_plain_ms=times[True][2], floor_ms=floor_ms)
         for name, n in launches.items():
             rows[name]["launches_by_path"]["width1_repro"] = n
         log(f"width1_slice_write: bound {bound_ms:.6f} ms ({bound_by}); no "
             f"single PyTorch call computes the function, so library_ms is "
             f"null")
+
+
+def training_phases(args, env, net_cfg, dev, rows, smi):
+    """The training step and the training iteration, 6x128, 15x15.
+
+    21a: one float32 ``train_step`` (TF32 off) at batch 256 against the same
+    step on float64 copies of the params, batch and optimizer state
+    (``STEP_TOL``, ``CHAOTIC_TOL``); 21b: twenty steps on one batch lower the
+    loss, timed by CUDA events.
+
+    22: ``train_alphazero`` with the shipped recipe's search
+    (``TRAINING_GUIDE.md:136-145``: Gumbel@64, m=16, reuse 48, track gate)
+    on the int8 tower, cut to size:
+      - 2 iterations of 256 games, each capped at ``TRAIN_MOVES`` moves (the
+        recipe plays 128 games to the end, 200 iterations);
+      - batch 256 (the recipe's 128), 1 epoch (the loop's len // batch
+        steps), a ``TRAIN_BUFFER`` ring (the recipe's 160000);
+      - an arena of 16 games at 64 simulations on the second iteration only
+        (``eval_every=2``; the recipe's 64 games at 384); no anchor arena,
+        no pretrained start (random weights from the seed);
+      - then a resume from the second iteration's snapshot: 1 iteration,
+        ``next_iteration_continuation=3`` (no arena: 3 % 2 != 0).
+    Launches: ``gumbel_select_walk``, ``backup_paths`` and ``int8_tower``,
+    nothing else.  Checks: finite losses, the snapshot, best and buffer
+    files, the history's keys, and a saved model that reloads and saves to
+    the same arrays bit for bit.  Prints each phase's seconds and the
+    self-play moves/s.
+    """
+    net_name = f"{net_cfg.n_res_blocks}x{net_cfg.channels}"
+    with Phase(f"21a train_step against float64 ({net_name}, batch "
+               f"{TRAIN_BATCH}, {BOARD}x{BOARD}, TF32 off)"):
+        gen = phase_gen(args.seed, 21, dev)
+        params, stats = init_params(net_cfg, args.seed)
+        p, s = split_state({k: v.to(dev) for k, v in
+                            params_from_jax(params, stats).items()})
+        states = random_states(env, TRAIN_BATCH, 12, gen, dev)
+        x = env.encode(states)
+        pi = torch.rand((TRAIN_BATCH, env.num_actions), generator=gen,
+                        device=dev)
+        pi = torch.where(pi < 0.5, 0.0, pi)
+        pi = pi / pi.sum(dim=1, keepdim=True)
+        z = torch.randint(-1, 2, (TRAIN_BATCH, 1), generator=gen,
+                          device=dev).float()
+        tx = Optimizer()
+        o = tx.init(p)
+
+        def f64(d):
+            return {k: v.double() if v.is_floating_point() else v
+                    for k, v in d.items()}
+
+        batch64 = (x.double(), pi.double(), z.double())
+        new32, _, o32, m32 = train_step(net_cfg, tx, p, s, o, x, pi, z)
+        new64, _, o64, m64 = train_step(net_cfg, tx, f64(p), f64(s),
+                                        AdamState(o.count, f64(o.mu),
+                                                  f64(o.nu)), *batch64)
+        worst, worst_chaotic, n_chaotic, n_zero, n = 0.0, 0.0, 0, 0, 0
+        for k in p:
+            # Adam's input g', from a fresh state's first moment
+            a32 = o32.mu[k].double() / (1 - tx.b1)
+            a64 = o64.mu[k] / (1 - tx.b1)
+            chaotic = a64.abs() <= (a32 - a64).abs() + 1e-6
+            diff = (new32[k].double() - new64[k]).abs()
+            worst = max(worst, float(torch.where(chaotic, 0.0, diff).max()))
+            worst_chaotic = max(worst_chaotic,
+                                float(torch.where(chaotic, diff, 0.0).max()))
+            n_chaotic += int(chaotic.sum())
+            n_zero += int((a64.abs() <= 1e-6).sum())
+            n += chaotic.numel()
+        loss_diff = abs(float(m32["total_loss"]) - float(m64["total_loss"]))
+        log(f"train_step float32 vs float64: {n} parameters; {n - n_chaotic}"
+            f" with Adam's inputs g' agreeing in sign moved within "
+            f"{worst:.3e} "
+            f"(tolerance {STEP_TOL}); {n_chaotic} sign-chaotic ({n_zero} "
+            f"with g' within 100 eps of zero) within {worst_chaotic:.3e} "
+            f"(tolerance "
+            f"{CHAOTIC_TOL}); loss {float(m32['total_loss']):.6f}, float64 "
+            f"{float(m64['total_loss']):.6f}")
+        if not (worst <= STEP_TOL and worst_chaotic <= CHAOTIC_TOL
+                and loss_diff <= 1e-4):
+            raise AssertionError("train_step: float32 step off the float64 "
+                                 "step beyond its tolerances")
+
+    with Phase(f"21b {TRAIN_STEPS} train_steps on one batch ({net_name}, "
+               f"batch {TRAIN_BATCH})"):
+        params_t, stats_t, opt_t = p, s, o
+        losses = []
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        train_step(net_cfg, tx, p, s, o, x, pi, z)       # warm-up
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(TRAIN_STEPS):
+            params_t, stats_t, opt_t, m = train_step(
+                net_cfg, tx, params_t, stats_t, opt_t, x, pi, z)
+            losses.append(m["total_loss"])
+        end.record()
+        torch.cuda.synchronize()
+        step_ms = start.elapsed_time(end) / TRAIN_STEPS
+        losses = [float(v) for v in losses]
+        log(f"train_step: {step_ms:.3f} ms a step (CUDA events over "
+            f"{TRAIN_STEPS} steps; 6x128, batch {TRAIN_BATCH}, float32, TF32 "
+            f"off) on {smi}; loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+        if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"train_step: {TRAIN_STEPS} steps on one "
+                                 f"batch did not lower the loss: {losses}")
+
+    common = dict(
+        board_size=BOARD, games_per_iteration=BATCH,
+        n_simulations=GUMBEL_SIMS, mcts_search="gumbel",
+        gumbel_max_considered=GUMBEL_M, mcts_reuse_budget=REUSE_BUDGET,
+        mcts_backend="pallas", inference="int8t",
+        n_res_blocks=net_cfg.n_res_blocks, channels=net_cfg.channels,
+        buffer_size=TRAIN_BUFFER, batch_size=TRAIN_BATCH, epochs_per_iter=1,
+        selfplay_max_moves=TRAIN_MOVES, eval_games=ARENA_GAMES,
+        eval_mcts_simulations=GUMBEL_SIMS, eval_every=2, gate_mode="track",
+        seed=args.seed, device=dev)
+    want_keys = {"iteration", "winners", "moves", "selfplay_seconds",
+                 "eval_seconds", "train_seconds", "loss", "win_rate",
+                 "win_rate_ci95", "arena_pairs", "anchor", "draws",
+                 "accepted", "buffer_size", "snapshot", "phase_seconds",
+                 "moves_per_second"}
+    some = ("gumbel_select_walk", "backup_paths", "int8_tower")
+    with tempfile.TemporaryDirectory() as tmp:
+        common["model_dir"] = tmp
+        with Phase(f"22a training iteration: train_alphazero, 2 iterations "
+                   f"of {BATCH} games capped at {TRAIN_MOVES} moves, "
+                   f"Gumbel@{GUMBEL_SIMS} m={GUMBEL_M} reuse {REUSE_BUDGET}, "
+                   f"int8t, 6x128, batch {TRAIN_BATCH}, arena {ARENA_GAMES} "
+                   f"games at {GUMBEL_SIMS} sims"):
+            reset_launch_counts()
+            hist = train_alphazero(num_iterations=2, **common)
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            expect_launches("training iteration", launches, {}, some=some)
+            for name, n in launches.items():
+                rows[name].setdefault("launches_by_path", {})[
+                    "train_iteration"] = n
+            check_history(hist, want_keys, tmp, smi)
+            if hist[1]["arena_pairs"]["n"] != ARENA_GAMES // 2:
+                raise AssertionError(f"arena: {hist[1]['arena_pairs']}")
+
+        with Phase("22b resume from the snapshot: 1 iteration, "
+                   "next_iteration_continuation=3"):
+            snap = hist[-1]["snapshot"]
+            reset_launch_counts()
+            hist2 = train_alphazero(num_iterations=1,
+                                    pretrained_model_path=snap,
+                                    candidate_model_path=snap,
+                                    next_iteration_continuation=3, **common)
+            torch.cuda.synchronize()
+            expect_launches("resumed training iteration", launch_counts(),
+                            {}, some=some)
+            check_history(hist2, want_keys, tmp, smi)
+            if hist2[0]["iteration"] != 3 or \
+                    hist2[0]["buffer_size"] < hist[-1]["buffer_size"]:
+                raise AssertionError(f"resume: {hist2[0]}")
+
+        with Phase("22c a saved model reloads bit for bit"):
+            model = AZModel.from_checkpoint(snap, device=dev)
+            again = os.path.join(tmp, "again.ckpt")
+            model.save(again)
+            a, b = ckpt.load_checkpoint(snap)[0], ckpt.load_checkpoint(
+                again)[0]
+            if not trees_equal(a, b):
+                raise AssertionError("a reloaded snapshot saved different "
+                                     "arrays")
+            log(f"{snap}: reloaded and saved again, every array equal")
+
+
+def check_history(hist, want_keys, model_dir, smi):
+    """The history's keys, finite losses, the files each iteration wrote;
+    prints each iteration's phases and self-play moves/s."""
+    for h in hist:
+        if set(h) != want_keys:
+            raise AssertionError(f"history keys {sorted(h)}")
+        loss = h["loss"]
+        if loss is None or not all(map(math.isfinite, loss.values())):
+            raise AssertionError(f"iteration {h['iteration']}: loss {loss}")
+        if not os.path.exists(h["snapshot"]):
+            raise AssertionError(f"no snapshot {h['snapshot']}")
+        phases = ", ".join(f"{k} {v:.3f} s"
+                           for k, v in h["phase_seconds"].items())
+        log(f"iteration {h['iteration']}: {h['moves']} self-play moves at "
+            f"{h['moves_per_second']:.2f} moves/s; phases: {phases}; loss "
+            f"{loss['total_loss']:.4f}; win_rate {h['win_rate']}; on {smi}")
+    for name in ("best_latest.ckpt", "replay_buffer_latest.npz"):
+        if not os.path.exists(os.path.join(model_dir, name)):
+            raise AssertionError(f"no {name} written")
+
+
+def trees_equal(a, b) -> bool:
+    """Two checkpoint state dicts hold the same keys and equal arrays."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(trees_equal(a[k], b[k]) for k in a))
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and bool((a == b).all()))
 
 
 def reuse_trace(env, cfg, eval_fn, bundle, states, moves, generator, ops):

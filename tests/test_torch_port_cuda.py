@@ -20,6 +20,13 @@ from alphazero_gomoku_tpu_torch.models import (
     fit_batch_stats,
     init_params,
     make_eval_fn,
+    params_from_jax,
+)
+from alphazero_gomoku_tpu_torch.models.model import (
+    AdamState,
+    Optimizer,
+    split_state,
+    train_step,
 )
 from alphazero_gomoku_tpu_torch.ops import fused_net as fn
 from alphazero_gomoku_tpu_torch.ops import int8_net as q8
@@ -684,8 +691,13 @@ def test_matmul_rate_wrapper_raises_on_bad_cuda_inputs():
 
 
 @pytest.mark.parametrize("ok", [False, True], ids=["width1", "segment"])
-@pytest.mark.parametrize("shape,c", [((ws.B, ws.G, ws.R), ws.C),
-                                     ((3, 5, 256), 200)])
+@pytest.mark.parametrize("shape,c", [
+    ((ws.B, ws.G, ws.R), ws.C), ((3, 5, 256), 200),
+    # rows whose byte count is not a multiple of 16: unaligned heads and
+    # tails; C at both edges of the row
+    ((2, 3, 1153), 0), ((2, 3, 1153), 1152), ((4, 5, 7), 0), ((4, 5, 7), 6),
+    ((3, 3, 2), 1), ((1, 1, 1), 0), ((2, 2, 4), 3), ((1, 2, ws.MAX_ROW), 5),
+])
 def test_width1_slice_write_kernel_equals_plain(shape, c, ok):
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(1)
@@ -700,13 +712,16 @@ def test_width1_slice_write_kernel_equals_plain(shape, c, ok):
 
 def test_width1_slice_write_raises_on_bad_cuda_inputs():
     dev = _card()
-    x = torch.zeros((2, 64, 1024), device=dev)     # a 256 KB slab
+    x = torch.zeros((2, 2, ws.MAX_ROW + 1), device=dev)   # a row too long
     with pytest.raises(ValueError, match="shared memory"):
         ws.width1_slice_write(x, 5)
+    with pytest.raises(ValueError, match="16-byte"):
+        ws.width1_slice_write(torch.zeros(17, device=dev)[1:].view(2, 2, 4),
+                              1)
     with pytest.raises(TypeError):
-        ws.width1_slice_write(x[:, :8].double(), 5)
+        ws.width1_slice_write(x[:, :, :8].contiguous().double(), 5)
     with pytest.raises(ValueError):
-        ws.width1_slice_write(x[:, :8].transpose(1, 2).contiguous()
+        ws.width1_slice_write(x[:, :, :8].transpose(1, 2).contiguous()
                               .transpose(1, 2), 5)
 
 
@@ -719,3 +734,102 @@ def test_time_rate_refuses_a_run_that_ignores_its_steps():
     with pytest.raises(RuntimeError, match="step count|elided"):
         mr.time_rate(lambda steps: mr.matmul_rate(x, w, 9, 1),
                      2.0 * mr.M_CARD * mr.K * mr.N * 9, "int8")
+
+
+# ----------------------------------------------------------------------
+# the training step and the replay mirror
+# ----------------------------------------------------------------------
+def _step_inputs(cfg, batch, seed, dev):
+    params, stats = init_params(cfg, seed)
+    p, s = split_state({k: v.to(dev) for k, v in
+                        params_from_jax(params, stats).items()})
+    g = torch.Generator(device=dev).manual_seed(seed)
+    size = cfg.board_size
+    cells = torch.randint(0, 3, (batch, size, size), generator=g, device=dev)
+    x = torch.stack([cells == 1, cells == 2,
+                     torch.ones_like(cells, dtype=torch.bool)], dim=-1).float()
+    pi = torch.rand((batch, size * size), generator=g, device=dev)
+    pi = torch.where(pi < 0.5, 0.0, pi)
+    pi = pi / pi.sum(dim=1, keepdim=True)
+    z = torch.randint(-1, 2, (batch, 1), generator=g, device=dev).float()
+    return p, s, x, pi, z
+
+
+def train_step_against_float64(cfg, batch, seed):
+    """One float32 step on the card against the same step in float64 on
+    the card, from a fresh optimizer state: Adam's first step is about
+    ``-lr * g' / (|g'| + eps)``, ``g'`` its input (the clipped gradient plus
+    the weight decay, read back from the first moment ``mu = 0.1 g'``).
+    Where the two ``g'`` (a, b) agree in sign and ``|a| > |a - b| + 100
+    eps``, the steps differ by ``lr * eps * |a - b| / ((|a| + eps)(|b| +
+    eps)) < lr / 100``, plus float32's rounding of ``p + u`` (2.4e-7 for
+    ``|p| < 2``); the others (within float32's error of zero, or across a
+    ReLU's kink) by up to ``2 lr + 1e-5``.  Returns how many are the
+    others."""
+    dev = _card()
+    p, s, x, pi, z = _step_inputs(cfg, batch, seed, dev)
+    tx = Optimizer()
+    o = tx.init(p)
+
+    def f64(d):
+        return {k: v.double() if v.is_floating_point() else v
+                for k, v in d.items()}
+
+    new32, _, o32, m32 = train_step(cfg, tx, p, s, o, x, pi, z)
+    new64, _, o64, m64 = train_step(
+        cfg, tx, f64(p), f64(s), AdamState(o.count, f64(o.mu), f64(o.nu)),
+        x.double(), pi.double(), z.double())
+    torch.cuda.synchronize()
+    chaotic_n = 0
+    for k in p:
+        a32 = o32.mu[k].double() / (1 - tx.b1)
+        a64 = o64.mu[k] / (1 - tx.b1)
+        chaotic = a64.abs() <= (a32 - a64).abs() + 1e-6
+        diff = (new32[k].double() - new64[k]).abs()
+        assert float(torch.where(chaotic, 0.0, diff).max()) <= \
+            tx.lr / 100 + 2.4e-7, k
+        assert float(torch.where(chaotic, diff, 0.0).max()) <= \
+            2 * tx.lr + 1e-5, k
+        chaotic_n += int(chaotic.sum())
+    assert abs(float(m32["total_loss"]) - float(m64["total_loss"])) <= 1e-4
+    return chaotic_n
+
+
+@pytest.mark.parametrize("blocks,channels,size,batch", [
+    (2, 16, 9, 32), (6, 128, 15, 64)], ids=["2x16", "6x128"])
+def test_train_step_on_the_card_matches_float64(blocks, channels, size,
+                                                 batch):
+    cfg = NetConfig(board_size=size, action_size=size * size,
+                    n_res_blocks=blocks, channels=channels)
+    train_step_against_float64(cfg, batch, seed=blocks)
+
+
+def test_device_mirror_sampling_equals_the_host_ring():
+    import numpy as np
+
+    from alphazero_gomoku_tpu_torch.selfplay.buffer import (
+        DeviceBufferMirror, ReplayBuffer, decode_states_f32)
+
+    dev = _card()
+    rng = np.random.default_rng(0)
+    buf = ReplayBuffer(capacity=300, board_size=7, channel_scales=(1, 1, 5))
+    mirror = DeviceBufferMirror(buf, device=dev)
+    for n in (120, 120, 100):                    # wraps once
+        planes = rng.integers(0, 2, (n, 7, 7, 2)).astype(np.float32)
+        k = rng.integers(0, 5, (n, 1, 1, 1)).astype(np.float32) / 5
+        states = np.concatenate(
+            [planes, np.broadcast_to(k, (n, 7, 7, 1))], axis=-1)
+        pis = rng.random((n, 49)).astype(np.float32)
+        zs = rng.choice([-1.0, 0.0, 1.0], n).astype(np.float32)
+        mirror.sync(states, pis, zs, buf.add(states, pis, zs))
+    idx = np.random.default_rng(5).choice(len(buf), 64, replace=False)
+    want = buf.sample(64, np.random.default_rng(5))
+    ib = torch.as_tensor(idx, device=dev)
+    got_s = mirror.states[ib].float() * mirror.inv_scales
+    np.testing.assert_array_equal(got_s.cpu().numpy(), want[0])
+    np.testing.assert_array_equal(
+        got_s.cpu().numpy(),
+        decode_states_f32(buf.states[idx], buf.inv_scales))
+    np.testing.assert_array_equal(mirror.pis[ib].cpu().numpy(), want[1])
+    np.testing.assert_array_equal(mirror.zs[ib].reshape(-1, 1).cpu().numpy(),
+                                  want[2])

@@ -122,12 +122,23 @@ def test_policy_fc_rows_are_permuted_hwc_to_chw(weights):
 
 
 def test_training_mode_is_refused(weights):
+    """Training mode is no longer refused: it normalises with batch
+    statistics and moves the running ones, as the JAX ``apply(train=True)``
+    does (``tests/test_torch_port_train_step.py`` holds it closely)."""
     _, params, stats = weights
     cfg = NetConfig(board_size=BOARD, action_size=BOARD * BOARD,
                     n_res_blocks=2, channels=32)
     net = bundle_of(cfg, params, stats, device="cpu").train()
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        net(torch.from_numpy(_obs(2, 0)))
+    obs = _obs(4, 0)
+    logits, _ = net(torch.from_numpy(obs))
+    (want, _), _ = apply(JaxNetConfig(board_size=BOARD,
+                                      action_size=BOARD * BOARD,
+                                      n_res_blocks=2, channels=32),
+                         params, stats, obs, train=True)
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(want),
+                               atol=1e-4)
+    assert not torch.equal(net.stem_bn.running_mean,
+                           torch.from_numpy(stats["stem_bn"]["mean"]))
 
 
 def test_fit_batch_stats_normalizes_each_bn_input():
