@@ -2,11 +2,12 @@
 
 Counterpart of ``alphazero_gomoku_tpu/cli/train.py:16-256``: the JAX CLI's
 flags with its defaults, and ``--device`` (default the card; ``cpu`` runs
-the port on the CPU).  The multi-host flags (``--distributed``,
-``--coordinator-address``, ``--num-processes``, ``--process-id``) are
-parsed and refused, as are the options ``train_alphazero`` refuses (a
-mesh, per-host replay, continuous self-play, Pente, a profiler trace),
-each naming its ROADMAP item.
+the port on the CPU).  ``--game pente`` (with ``--pente-capture-planes``)
+and ``--selfplay-mode continuous`` (with ``--selfplay-steps``) run.  The
+multi-host flags (``--distributed``, ``--coordinator-address``,
+``--num-processes``, ``--process-id``) are parsed and refused, as are the
+options ``train_alphazero`` refuses (a mesh, per-host replay, a profiler
+trace), each naming its ROADMAP item.
 
     python -m alphazero_gomoku_tpu_torch.cli.train [flags]
 """

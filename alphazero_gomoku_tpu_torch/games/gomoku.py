@@ -22,7 +22,7 @@ from typing import NamedTuple
 import torch
 
 from alphazero_gomoku_tpu_torch.device import resolve_device
-from alphazero_gomoku_tpu_torch.ops.lines import wins_at
+from alphazero_gomoku_tpu_torch.ops.lines import full_board_winner, wins_at
 
 
 class GomokuState(NamedTuple):
@@ -36,12 +36,12 @@ class GomokuState(NamedTuple):
     done: torch.Tensor         # bool [B]
 
 
-def where_state(cond: torch.Tensor, a: GomokuState,
-                b: GomokuState) -> GomokuState:
-    """Per-lane select: lane ``i`` from ``a`` where ``cond[i]``, else ``b``."""
+def where_state(cond: torch.Tensor, a, b):
+    """Per-lane select of two states of one type (``GomokuState``,
+    ``PenteState``): lane ``i`` from ``a`` where ``cond[i]``, else ``b``."""
     def pick(x, y):
         return torch.where(cond.view((-1,) + (1,) * (x.dim() - 1)), x, y)
-    return GomokuState(*(pick(x, y) for x, y in zip(a, b)))
+    return type(a)(*(pick(x, y) for x, y in zip(a, b)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +82,30 @@ class GomokuEnv:
             move_count=full(0, torch.int32),
             winner=full(0, torch.int32),
             done=full(False, torch.bool),
+        )
+
+    def from_board(self, board, to_move, move_count=None) -> GomokuState:
+        """States of raw boards ``[B, size, size]`` (no history): the winner
+        by a full line scan, ``last_action`` -1, ``move_count`` the stone
+        count unless given (``alphazero_gomoku_tpu/games/gomoku.py:85``
+        batched).  ``to_move`` and ``move_count`` are ints or ``[B]``."""
+        board = torch.as_tensor(board).to(torch.int8)
+        b = board.shape[0]
+        dev = board.device
+
+        def lanes(x):
+            return torch.as_tensor(x, device=dev).to(torch.int32).expand(b)
+
+        stones = (board != 0).reshape(b, -1).sum(dim=1).to(torch.int32)
+        winner = full_board_winner(board)
+        return GomokuState(
+            board=board,
+            to_move=lanes(to_move).clone(),
+            last_action=torch.full((b,), -1, dtype=torch.int32, device=dev),
+            move_count=(stones if move_count is None
+                        else lanes(move_count).clone()),
+            winner=winner,
+            done=(winner != 0) | (stones >= self.num_actions),
         )
 
     def legal_mask(self, state: GomokuState) -> torch.Tensor:

@@ -365,18 +365,16 @@ def random_play_calib_obs(cfg: NetConfig, game: str = "gomoku",
 
     Random play visits plausible stone densities and alternation patterns;
     the training loop calibrates on them while its replay buffer is still
-    too small to sample.  Only Gomoku is ported (Pente: ROADMAP Queue A
-    item 9).
+    too small to sample.  ``game`` is ``"gomoku"`` or ``"pente"`` (the host
+    engines of ``games/host.py``); the boards have the 3 base planes, and
+    a caller with capture planes appends them (``selfplay/loop.py``).
     """
-    from alphazero_gomoku_tpu_torch.games.host import Gomoku
-    if game != "gomoku":
-        raise NotImplementedError(
-            f"random_play_calib_obs: game {game!r} is not ported (Pente is "
-            f"ROADMAP Queue A item 9)")
+    from alphazero_gomoku_tpu_torch.games.host import Gomoku, Pente
+    eng_cls = {"gomoku": Gomoku, "pente": Pente}[game]
     rng = np.random.default_rng(seed)
     obs = []
     while len(obs) < n:
-        env = Gomoku(cfg.board_size)
+        env = eng_cls(cfg.board_size)
         for _ in range(int(rng.integers(4, 60))):
             moves = env.get_legal_moves()
             if not moves:

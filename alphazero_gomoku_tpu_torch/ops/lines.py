@@ -56,3 +56,36 @@ def run_length_through(board: torch.Tensor, r, c, player,
 def wins_at(board: torch.Tensor, r, c, player, need: int = 5) -> torch.Tensor:
     """bool ``[B]``: a stone at ``(r, c)`` gives ``player`` ``need`` in a row."""
     return run_length_through(board, r, c, player, need) >= need
+
+
+def has_line(board: torch.Tensor, player, need: int = 5) -> torch.Tensor:
+    """bool ``[B]``: ``player`` has ``need`` in a row anywhere on the board.
+
+    ``alphazero_gomoku_tpu/ops/lines.py:57`` batched: the AND of ``need``
+    shifted copies of the player's stones, on a board padded by ``need - 1``
+    empty cells, is non-empty along one of the four line axes.  For boards
+    that come without a last move (``from_board``).  ``player`` is an int or
+    an int ``[B]``.
+    """
+    b, h, w = board.shape
+    player = torch.as_tensor(player, device=board.device).to(board.dtype)
+    mine = board == player.reshape(-1, 1, 1)
+    pad = need - 1
+    big = torch.nn.functional.pad(mine, (pad, pad, pad, pad))
+    found = torch.zeros(b, dtype=torch.bool, device=board.device)
+    for dr, dc in LINE_DIRS:
+        acc = torch.ones((b, h, w), dtype=torch.bool, device=board.device)
+        for k in range(need):
+            r0, c0 = pad + k * dr, pad + k * dc
+            acc = acc & big[:, r0:r0 + h, c0:c0 + w]
+        found = found | acc.reshape(b, -1).any(dim=1)
+    return found
+
+
+def full_board_winner(board: torch.Tensor, need: int = 5) -> torch.Tensor:
+    """int32 ``[B]`` winner (0 / 1 / 2) of raw boards by a full line scan;
+    player 1 where both have a line, as in the JAX function."""
+    w1 = has_line(board, 1, need)
+    w2 = has_line(board, 2, need)
+    zero = torch.zeros_like(w1, dtype=torch.int32)
+    return torch.where(w1, 1, torch.where(w2, 2, zero)).to(torch.int32)

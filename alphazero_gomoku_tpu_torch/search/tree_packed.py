@@ -38,6 +38,11 @@ Gumbel, value are refreshed) and its simulations take slots R, R+1, ...;
 each simulation also records its slot's parent and action in the carry's
 sidecar arrays, which :func:`packed_advance_root` follows to re-root the
 tree at the played move between moves.
+
+The searches are generic over the game's state NamedTuple (``GomokuState``,
+``PenteState``), as the JAX searches are over its state pytree: every node
+holds every field (Pente's ``captures`` too), and each gather, slot write,
+concatenation and re-rooting rebuilds the state as ``type(state)(*fields)``.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ import torch
 
 from alphazero_gomoku_tpu_torch.device import resolve_device
 from alphazero_gomoku_tpu_torch.games.gomoku import GomokuState, where_state
+from alphazero_gomoku_tpu_torch.games.pente import PenteState
 from alphazero_gomoku_tpu_torch.ops.tree_kernels import (
     KERNELS,
     NEG_INF,
@@ -91,12 +97,12 @@ class PackedCarry(NamedTuple):
     """
 
     packed: torch.Tensor
-    states: GomokuState
+    states: NamedTuple
     parent: torch.Tensor
     parent_action: torch.Tensor
 
 
-def _state_stack(root_states: GomokuState, n: int) -> GomokuState:
+def _state_stack(root_states, n: int):
     """Node-state stack ``[B, n, ...]`` with the root at node 0."""
     batch = root_states.done.shape[0]
 
@@ -106,11 +112,10 @@ def _state_stack(root_states: GomokuState, n: int) -> GomokuState:
         z[:, 0] = x
         return z
 
-    return GomokuState(*(stack_field(x) for x in root_states))
+    return type(root_states)(*(stack_field(x) for x in root_states))
 
 
-def _fresh_carry(env, cfg: MCTSConfig, root_states: GomokuState
-                 ) -> PackedCarry:
+def _fresh_carry(env, cfg: MCTSConfig, root_states) -> PackedCarry:
     layout = packed_layout(env.num_actions, cfg.node_capacity)
     batch = root_states.done.shape[0]
     dev = root_states.board.device
@@ -121,8 +126,7 @@ def _fresh_carry(env, cfg: MCTSConfig, root_states: GomokuState
                        no_link, no_link.clone())
 
 
-def init_packed_carry(env, cfg: MCTSConfig,
-                      root_states: GomokuState) -> PackedCarry:
+def init_packed_carry(env, cfg: MCTSConfig, root_states) -> PackedCarry:
     """The empty tree of ``root_states`` as a carry (zero stats, children
     -1): the self-play runner's carry from move 0.  A search given it runs
     the search of a fresh tree, with its slots moved up by
@@ -132,8 +136,7 @@ def init_packed_carry(env, cfg: MCTSConfig,
     return _fresh_carry(env, cfg, root_states)
 
 
-def _begin(env, cfg: MCTSConfig, root_states: Optional[GomokuState],
-           carry: Optional[PackedCarry]):
+def _begin(env, cfg: MCTSConfig, root_states, carry: Optional[PackedCarry]):
     """``(carry, root_states, slot_base)`` a search starts from: a fresh tree
     whose simulations take slots 1, 2, ..., or a copy of ``carry`` whose
     simulations take slots ``reuse_budget``, ... (the root states default to
@@ -148,25 +151,24 @@ def _begin(env, cfg: MCTSConfig, root_states: Optional[GomokuState],
     # stays as it was
     packed, states, parent, pact = carry
     carry = PackedCarry(packed.clone(),
-                        GomokuState(*(x.clone() for x in states)),
+                        type(states)(*(x.clone() for x in states)),
                         parent.clone(), pact.clone())
     if root_states is None:
-        root_states = GomokuState(*(x[:, 0] for x in carry.states))
+        root_states = type(states)(*(x[:, 0] for x in carry.states))
     return carry, root_states, cfg.reuse_budget
 
 
-def _expand(env, states: GomokuState, trees: torch.Tensor, leaf: torch.Tensor,
+def _expand(env, states, trees: torch.Tensor, leaf: torch.Tensor,
             action: torch.Tensor):
     """Step 2 of a simulation for walk lanes over trees ``trees [L]``:
     ``(write_state, expanding)``, the state each lane's slot gets."""
     expanding = action >= 0
-    parent_state = GomokuState(*(x[trees, leaf.long()] for x in states))
+    parent_state = type(states)(*(x[trees, leaf.long()] for x in states))
     child_state = env.step(parent_state, torch.clamp(action, min=0))
     return where_state(expanding, child_state, parent_state), expanding
 
 
-def _evaluate(env, cfg: MCTSConfig, eval_fn: EvalFn, net_params,
-              leaves: GomokuState):
+def _evaluate(env, cfg: MCTSConfig, eval_fn: EvalFn, net_params, leaves):
     """Step 3: ``(leaf_value [L], signed_priors [L, A])`` of the leaf
     states, in one network call."""
     probs, values = eval_fn(net_params, env.encode(leaves))
@@ -181,7 +183,7 @@ def _evaluate(env, cfg: MCTSConfig, eval_fn: EvalFn, net_params,
 
 
 def _expand_and_eval(env, cfg: MCTSConfig, eval_fn: EvalFn, net_params,
-                     states: GomokuState, trees: torch.Tensor,
+                     states, trees: torch.Tensor,
                      leaf: torch.Tensor, action: torch.Tensor):
     """Steps 2-3 of a simulation: ``(write_state, expanding, leaf_value,
     signed_priors)``."""
@@ -190,7 +192,7 @@ def _expand_and_eval(env, cfg: MCTSConfig, eval_fn: EvalFn, net_params,
     return write_state, expanding, leaf_value, priors
 
 
-def _write_slot(states: GomokuState, slot: int, write_state: GomokuState):
+def _write_slot(states, slot: int, write_state):
     for stack, x in zip(states, write_state):     # in place, lane-uniform
         stack[:, slot] = x
 
@@ -203,7 +205,7 @@ def _write_parent(carry: PackedCarry, slot: int, leaf: torch.Tensor,
 
 
 def run_mcts_packed(env, cfg: MCTSConfig, eval_fn: EvalFn, net_params,
-                    root_states: GomokuState, move_numbers: torch.Tensor,
+                    root_states, move_numbers: torch.Tensor,
                     generator: Optional[torch.Generator] = None,
                     noise: Optional[torch.Tensor] = None,
                     ops: TreeOps = KERNELS):
@@ -221,7 +223,7 @@ def run_mcts_packed(env, cfg: MCTSConfig, eval_fn: EvalFn, net_params,
 
 
 def run_mcts_packed_with_tree(env, cfg: MCTSConfig, eval_fn: EvalFn,
-                              net_params, root_states: Optional[GomokuState],
+                              net_params, root_states,
                               move_numbers: torch.Tensor,
                               generator: Optional[torch.Generator] = None,
                               noise: Optional[torch.Tensor] = None,
@@ -291,7 +293,7 @@ def run_mcts_packed_with_tree(env, cfg: MCTSConfig, eval_fn: EvalFn,
                                  write_state.done, mode="vl")
                 macro.append((pnodes, pacts, plen, expanding, write_state))
             # the k leaves in one network call, j-major
-            leaves = GomokuState(*(torch.cat(field) for field in zip(
+            leaves = type(states)(*(torch.cat(field) for field in zip(
                 *(m[4] for m in macro))))
             leaf_value, priors = _evaluate(env, cfg, eval_fn, net_params,
                                            leaves)
@@ -326,7 +328,7 @@ def _top_k(scores: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def run_gumbel_packed(env, cfg: MCTSConfig, eval_fn: EvalFn, net_params,
-                      root_states: GomokuState,
+                      root_states,
                       generator: Optional[torch.Generator] = None,
                       uniforms: Optional[torch.Tensor] = None,
                       ops: TreeOps = KERNELS):
@@ -343,7 +345,7 @@ def run_gumbel_packed(env, cfg: MCTSConfig, eval_fn: EvalFn, net_params,
 
 
 def run_gumbel_packed_with_tree(env, cfg: MCTSConfig, eval_fn: EvalFn,
-                                net_params, root_states: Optional[GomokuState],
+                                net_params, root_states,
                                 generator: Optional[torch.Generator] = None,
                                 uniforms: Optional[torch.Tensor] = None,
                                 ops: TreeOps = KERNELS,
@@ -420,7 +422,7 @@ def run_gumbel_packed_with_tree(env, cfg: MCTSConfig, eval_fn: EvalFn,
                 # lane l = tree * m_k + c: column c is one serial simulation
                 for c in range(m_k):
                     col = slice(c, None, m_k)
-                    _write_slot(states, slot, GomokuState(
+                    _write_slot(states, slot, type(states)(
                         *(x[col] for x in write_state)))
                     ops.backup_paths(
                         packed, pnodes[:, col].contiguous(),
@@ -542,10 +544,11 @@ def packed_advance_root(env, cfg: MCTSConfig, carry: PackedCarry,
         mask = gone_s.view(gone_s.shape + (1,) * (x.dim() - 2))
         return torch.where(mask, torch.zeros_like(x), x)
 
-    new_states = GomokuState(*(gather_states(x) for x in states))
-    stepped = env.step(GomokuState(*(x[:, 0] for x in states)), actions)
+    state_type = type(states)
+    new_states = state_type(*(gather_states(x) for x in states))
+    stepped = env.step(state_type(*(x[:, 0] for x in states)), actions)
     root = where_state(fresh, stepped,
-                       GomokuState(*(x[:, 0] for x in new_states)))
+                       state_type(*(x[:, 0] for x in new_states)))
     for x, y in zip(new_states, root):
         x[:, 0] = y
 
@@ -561,7 +564,8 @@ def packed_carry_from_numpy(packed, states, parent, parent_action,
                             device=None) -> PackedCarry:
     """The port's ``PackedCarry`` from numpy arrays of one in the JAX
     package's layout: ``packed`` f32 ``[B, n_nodes * 8, seg]``, ``states``
-    the node-state stack's fields in ``GomokuState`` order (boards flat,
+    the node-state stack's fields in ``GomokuState`` order, or
+    ``PenteState``'s (its 7 fields, ``captures`` last) (boards flat,
     ``[B, n, H*W]``, or ``[B, n, H, W]``), ``parent`` and ``parent_action``
     i32 ``[B, n_nodes]``.  Lets a search start from the JAX package's tree
     (as ``params_from_jax`` does for weights); ``device`` as the entry
@@ -575,8 +579,10 @@ def packed_carry_from_numpy(packed, states, parent, parent_action,
     if board.ndim == 3:
         size = math.isqrt(board.shape[-1])
         board = board.reshape(board.shape[:2] + (size, size))
-    stack = GomokuState(tensor(board, np.int8),
-                        *(tensor(x) for x in states[1:]))
+    state_type = PenteState if len(states) == len(PenteState._fields) \
+        else GomokuState
+    stack = state_type(tensor(board, np.int8),
+                       *(tensor(x) for x in states[1:]))
     return PackedCarry(tensor(packed, np.float32), stack,
                        tensor(parent, np.int32),
                        tensor(parent_action, np.int32))

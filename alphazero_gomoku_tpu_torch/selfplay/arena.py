@@ -16,9 +16,11 @@ Counterpart of ``alphazero_gomoku_tpu/selfplay/arena.py:38-200``:
     Wilson 95 % interval and the pairs' outcomes.
 
 The JAX arena draws from a PRNG key; here a seed makes a ``torch.Generator``
-on the device, for the openings and (Gumbel) the root noise.  The two nets
-must read the same observation planes: :func:`evaluate_params_detailed`
-refuses configs whose ``in_channels`` differ (ADVICE.md r5, P3).
+on the device, for the openings and (Gumbel) the root noise.  Any game's
+env plays (Gomoku, or Pente with or without capture planes: the nets read
+``env.encode``'s planes).  The two nets must read the same observation
+planes: :func:`evaluate_params_detailed` refuses configs whose
+``in_channels`` differ (ADVICE.md r5, P3).
 """
 
 from __future__ import annotations

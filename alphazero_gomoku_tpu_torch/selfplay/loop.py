@@ -6,9 +6,12 @@ and ``train_alphazero``, ``:129-988``), on one device; its ``make_eval_fn``,
 ``make_inference``, ``AZModel.eval_net``, ``train_epoch`` and
 ``train_epoch_gather``.  Each iteration:
 
-  1. self-play with the candidate (``play_games``: PUCT, k-leaf PUCT or
-     Gumbel, subtree reuse, PCR, the random opening) -> ``collect_examples``
-     -> the replay buffer and its mirror on the device;
+  1. self-play with the candidate -> the replay buffer and its mirror on
+     the device: lockstep games (``play_games``: PUCT, k-leaf PUCT or
+     Gumbel, subtree reuse, PCR, the random opening) -> ``collect_examples``,
+     or with ``selfplay_mode="continuous"`` a stream of ``selfplay_steps``
+     plies (0: board², ``play_games_continuous``) of auto-reset lanes ->
+     ``collect_examples_continuous``;
   2. once the buffer holds a batch, ``epochs_per_iter`` epochs of
      ``len(buffer) // batch_size`` steps, on batches gathered on the device
      by numpy index draws (``models/model.train_epoch_gather``);
@@ -38,11 +41,15 @@ keys (self-play ``seed * 100003 + it``, arena ``seed * 7919 + it``, anchor
 int8 calibration samples, as in the JAX loop.  The numbers differ from
 JAX's (threefry is not torch's generator).
 
+Games: ``game_name`` "gomoku" or "pente"; ``pente_capture_planes`` adds
+Pente's two captured-pair planes (a 5-plane net; the int8 calibration's
+random-play boards get them as zero planes, as in the JAX loop).
+
 Not ported, each refused with an error naming its ROADMAP item: a mesh over
-more than one device and ``replay_sharding="per_host"`` (Queue A item 13);
-``selfplay_mode="continuous"`` (the next slice); Pente (item 9);
-``profile_trace_dir`` (item 14).  The JAX XLA memory preflight
-(``selfplay/budget.py``) stays item 14.
+more than one device (with continuous self-play, the JAX package's
+``make_sharded_selfplay_continuous``) and ``replay_sharding="per_host"``
+(Queue A item 13); ``profile_trace_dir`` (item 14).  The JAX XLA memory
+preflight (``selfplay/budget.py``) stays item 14.
 """
 
 from __future__ import annotations
@@ -76,7 +83,9 @@ from alphazero_gomoku_tpu_torch.selfplay.buffer import (
 from alphazero_gomoku_tpu_torch.selfplay.runner import (
     SelfPlayConfig,
     collect_examples,
+    collect_examples_continuous,
     play_games,
+    play_games_continuous,
 )
 
 
@@ -131,27 +140,37 @@ def gate_decision(gate_stat: str, win_rate, ci95, threshold: float,
     raise ValueError(f"unknown gate_stat: {gate_stat!r}")
 
 
-def _search_bundles(inference: str, game_name: str, seed: int, buffer,
+def _search_bundles(inference: str, env, seed: int, buffer,
                     timer: PhaseTimer, device):
     """``(eval_fn, search_bundle)`` for an inference mode (``make_inference``);
     ``search_bundle(model)`` re-makes a model's bundle when its weights
     changed (keyed on the identity of its ``params`` dict, which every step
     replaces), timed as the ``quantize`` phase.  int8 bundles are calibrated
-    on 256 replay samples, or on random-play boards while the buffer holds
-    fewer, as in the JAX loop."""
+    on 256 replay samples, or on random-play boards of ``env``'s game while
+    the buffer holds fewer, as in the JAX loop (``_calib_states``): those
+    have the 3 base planes, and zero planes are appended up to
+    ``env.obs_channels`` (Pente's capture planes, zero at a game's start)."""
     from alphazero_gomoku_tpu_torch.ops.int8_net import random_play_calib_obs
 
     cache: dict = {}
     calib_rng = np.random.default_rng(seed)
     eval_fn = None
 
+    def calib_boards(cfg):
+        obs = random_play_calib_obs(cfg, game=env.name, n=256)
+        extra = env.obs_channels - obs.shape[-1]
+        if extra > 0:
+            obs = np.concatenate(
+                [obs, np.zeros(obs.shape[:-1] + (extra,), obs.dtype)],
+                axis=-1)
+        return obs
+
     def make(model: AZModel):
         nonlocal eval_fn
         calib = None
         if inference in ("int8", "int8t"):
             calib = (buffer.sample(256, rng=calib_rng)[0] if len(buffer) >= 256
-                     else random_play_calib_obs(model.cfg, game=game_name,
-                                                n=256))
+                     else calib_boards(model.cfg))
         eval_fn, bundle = make_inference(inference, model.cfg,
                                          *model.jax_params(), device=device,
                                          calib_obs=calib)
@@ -265,7 +284,6 @@ def train_alphazero(
     del selfplay_num_workers, selfplay_device, selfplay_games_per_task
     del selfplay_base_seed, selfplay_torch_threads, eval_num_workers
     del eval_device, eval_games_per_task, eval_base_seed, eval_torch_threads
-    del selfplay_steps
 
     def log(*args):
         if verbose:
@@ -280,9 +298,12 @@ def train_alphazero(
             f"pente_capture_planes=True requires game_name='pente' "
             f"(got {game_name!r})")
     if not (mesh is None or (isinstance(mesh, str) and mesh == "auto")):
+        what = ("sharded continuous self-play "
+                "(make_sharded_selfplay_continuous)"
+                if selfplay_mode == "continuous" else "a device mesh")
         raise NotImplementedError(
-            "a device mesh is not ported yet (ROADMAP Queue A item 13); "
-            "pass mesh=None or 'auto' for one device")
+            f"{what} is not ported yet (ROADMAP Queue A item 13); pass "
+            f"mesh=None or 'auto' for one device")
     if replay_sharding not in ("replicated", "per_host"):
         raise ValueError(f"unknown replay_sharding: {replay_sharding!r} "
                          "(expected 'replicated' or 'per_host')")
@@ -290,11 +311,7 @@ def train_alphazero(
         raise NotImplementedError(
             "replay_sharding='per_host' needs the multi-process mesh (ROADMAP "
             "Queue A item 13)")
-    if selfplay_mode == "continuous":
-        raise NotImplementedError(
-            "continuous self-play (play_games_continuous) is not ported yet "
-            "(ROADMAP Queue A, the next slice)")
-    if selfplay_mode != "lockstep":
+    if selfplay_mode not in ("lockstep", "continuous"):
         raise ValueError(f"unknown selfplay_mode: {selfplay_mode!r}")
     if profile_trace_dir:
         raise NotImplementedError(
@@ -310,7 +327,10 @@ def train_alphazero(
 
     dev = resolve_device(device)
     os.makedirs(model_dir, exist_ok=True)
-    env = make_env(game_name, board_size)   # Pente raises (item 9)
+    env = make_env(game_name, board_size,
+                   capture_planes=pente_capture_planes)
+    continuous = selfplay_mode == "continuous"
+    steps = selfplay_steps or env.num_actions
     timer = PhaseTimer(dev)
 
     def new_model():
@@ -363,8 +383,8 @@ def train_alphazero(
 
     if inference not in INFERENCE_MODES:
         raise ValueError(f"unknown inference mode: {inference!r}")
-    eval_fn, search_bundle = _search_bundles(inference, game_name, seed,
-                                             buffer, timer, dev)
+    eval_fn, search_bundle = _search_bundles(inference, env, seed, buffer,
+                                             timer, dev)
     mcts = MCTSConfig(
         n_simulations=n_simulations, cpuct=cpuct,
         dirichlet_alpha=dirichlet_alpha, dirichlet_epsilon=dirichlet_epsilon,
@@ -409,27 +429,41 @@ def train_alphazero(
 
         # ---- phase 1: self-play --------------------------------------
         bundle_cand = search_bundle(model_candidate)
+        gen = _generator(dev, seed * 100003 + it)
         with timer.phase("selfplay"):
-            traj = play_games(env, sp_cfg, eval_fn, bundle_cand,
-                              _generator(dev, seed * 100003 + it), dev)
+            if continuous:
+                traj = play_games_continuous(env, sp_cfg, eval_fn,
+                                             bundle_cand, gen, steps, dev)
+            else:
+                traj = play_games(env, sp_cfg, eval_fn, bundle_cand, gen,
+                                  dev)
         with timer.phase("collect"):
-            states, pis, zs, winners = collect_examples(
+            collect = (collect_examples_continuous if continuous
+                       else collect_examples)
+            states, pis, zs, winners = collect(
                 traj, use_symmetries=use_symmetries,
-                value_target_mix=value_target_mix)
+                value_target_mix=value_target_mix,
+                capture_planes=pente_capture_planes)
         with timer.phase("buffer"):
             written = buffer.add(states, pis, zs)
             if len(written) == buffer.capacity:
                 dev_mirror = DeviceBufferMirror(buffer, device=dev)
             else:
                 dev_mirror.sync(states, pis, zs, written)
-        n_moves = int(traj.moves_played.sum())
+        if continuous:
+            n_moves = traj.ended.numel()
+            if len(zs) == 0:
+                log(f"[selfplay] WARNING: no game finished within {steps} "
+                    f"plies — all records dropped; raise selfplay_steps")
+        else:
+            n_moves = int(traj.moves_played.sum())
         sp_dt = timer.last["selfplay"]
         pcr_note = ""
         if pcr_cheap_sims:
             # cheap (value-only) plies carry all-zero recorded pis
-            active = traj.active
-            n_valid = max(int(active.sum()), 1)
-            full = int(((traj.pis.sum(dim=-1) > 0.5) & active).sum())
+            valid = traj.recorded if continuous else traj.active
+            n_valid = max(int(valid.sum()), 1)
+            full = int(((traj.pis.sum(dim=-1) > 0.5) & valid).sum())
             pcr_note = (f", pcr full plies {full}/{n_valid} "
                         f"({full / n_valid:.2f})")
         log(f"self-play done: {sp_dt:.1f}s, {n_moves} moves "

@@ -37,7 +37,18 @@ weights made from ``--seed`` (their BN stats fitted to random boards,
     shipped recipe's search, Gumbel@64, m=16, reuse 48, on the int8 tower
     (``inference="int8t"``), 6x128: kernels ``gumbel_select_walk``,
     ``backup_paths`` and ``int8_tower`` (its reductions are in
-    ``training_phases``'s docstring).
+    ``training_phases``'s docstring);
+  - Pente 15x15 with capture planes at bench config #4's shape (PUCT@400,
+    batch 64, the int8 tower) with a 6x128 net of 5 input planes, 8 moves:
+    kernels ``select_walk``, ``backup_paths`` and ``int8_tower``; K4 and K5
+    held first on Pente boards with captured pairs k = 0..4 on both planes
+    (``pente_phases``);
+  - continuous (auto-reset) self-play, ``play_games_continuous``, Gomoku at
+    batch 256, Gumbel@64 m=16 on the int8 tower, 32 plies of games capped
+    at 12 moves: kernels ``gumbel_select_walk``, ``backup_paths`` and
+    ``int8_tower``; then one ``train_alphazero`` iteration on Pente with
+    capture planes in continuous mode on the same kernels
+    (``continuous_phases``).
 
 ``width1_slice_write`` is held (exactly) on the repro's shape and on rows
 whose byte count is not a multiple of 16, with C at both edges, and timed
@@ -128,6 +139,7 @@ from alphazero_gomoku_tpu_torch.search.tree_packed import (
 from alphazero_gomoku_tpu_torch.selfplay import (
     SelfPlayConfig,
     play_games,
+    play_games_continuous,
     train_alphazero,
 )
 from alphazero_gomoku_tpu_torch.tools import latency_floor as lf
@@ -195,6 +207,16 @@ STEP_TOL, CHAOTIC_TOL = 1e-5 + 2.4e-7, 2e-3 + 1e-5
 TRAIN_MOVES = 16        # self-play move cap of each of its iterations
 TRAIN_BUFFER = 60000    # the CLI's --buffer-size default
 ARENA_GAMES = 16
+# Pente (pente_phases): bench config #4 (bench.py:351-354: Pente, PUCT@400
+# with config #3's search constants, batch 64, int8) with capture planes,
+# the shipped Pente net's input (checkpoints/best_pente.ckpt: 6x128, 5
+# planes)
+PENTE_BATCH = 64
+# continuous self-play (continuous_phases): plies, and the move cap that
+# ends every lane's game at least twice in them
+CONT_STEPS, CONT_MAX_MOVES = 32, 12
+# its training iteration: plies and move cap
+CONT_TRAIN_STEPS, CONT_TRAIN_MAX_MOVES = 16, 8
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, FP32 FLOP/s
 # (CUDA cores); the dense bf16 FLOP/s and int8 OP/s of its tensor cores are
@@ -747,6 +769,8 @@ def main() -> int:
                      int8_bundle, int8_rate)
     probe_phases(args, net_cfg, dev, rows, smi)
     training_phases(args, env, net_cfg, dev, rows, smi)
+    pente_phases(args, dev, rows, smi)
+    continuous_phases(args, env, net_cfg, dev, rows, smi, int8_bundle)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi())
@@ -1679,6 +1703,305 @@ def training_phases(args, env, net_cfg, dev, rows, smi):
             log(f"{snap}: reloaded and saved again, every array equal")
 
 
+def pente_obs(env, batch, plies, generator, dev):
+    """Pente encodings with capture planes: ``plies`` random legal moves,
+    then captured pairs k = 0..4 of both sides spread over the lanes (the
+    planes hold k / 5, the int8 observation quantization's first inputs
+    that are neither 0 nor 1)."""
+    states = random_states(env, batch, plies, generator, dev)
+    order = torch.randperm(2 * batch, generator=generator, device=dev)
+    k = (order.reshape(batch, 2) % 5).to(torch.int32)
+    return env.encode(states._replace(captures=k))
+
+
+def pente_phases(args, dev, rows, smi):
+    """Phases 23a-c: Pente 15x15 with capture planes at bench config #4's
+    shape, on a 6x128 net of 5 input planes (``init_params`` from the seed,
+    BN fitted to Pente boards as ``smoke_weights`` fits the Gomoku net's):
+    K5 and K4 at cin 5 against their plain versions at batch 64 and 256;
+    one PUCT@400 search on the kernels against the same search on the plain
+    versions; PUCT@400 self-play at batch 64 on K5."""
+    env = make_env("pente", BOARD, capture_planes=True)
+    cfg = NetConfig.full(BOARD, in_channels=env.obs_channels)
+    params, stats = init_params(cfg, args.seed)
+    calib = pente_obs(env, 256, 30, phase_gen(args.seed, 123, dev), dev)
+    stats = fit_batch_stats(cfg, params, stats, calib, device=dev)
+    q = q8.quantize_int8(cfg, params, stats, calib.cpu(), device=dev)
+    packed = t8.pack_tower_bundle(cfg, q)
+    folded = fn.fold_bn(cfg, params, stats, device=dev)
+    xla = fn.fold_bn_xla(cfg, params, stats, device=dev)
+    with Phase(f"23a int8_tower (tolerance 0) and fused_tower (the C4 "
+               f"criterion against float64) at cin {cfg.in_channels}: Pente "
+               f"{BOARD}x{BOARD} with capture planes, k = 0..4, 6x128, "
+               f"batch {PENTE_BATCH} and {BATCH}"):
+        log(f"Pente int8 bundle: inv_obs {q['inv_obs'].tolist()}; stems: "
+            f"int8 {tuple(packed['stem_w'].shape)}, bf16 "
+            f"{tuple(folded['stem_w'].shape)} (9 x cin x C)")
+        for batch in (PENTE_BATCH, BATCH):
+            obs = pente_obs(env, batch, 30,
+                            phase_gen(args.seed, 23 + batch, dev), dev)
+            ks = torch.unique(torch.round(obs[:, 0, 0, 3:] * 5))
+            if ks.tolist() != [0.0, 1.0, 2.0, 3.0, 4.0]:
+                raise AssertionError(f"capture planes hold k = {ks}")
+            tower = t8.int8_tower(packed, obs)
+            plain = t8.int8_tower_plain(packed, obs)
+            k_logits, k_value = t8.int8_tower_apply(cfg, packed, obs)
+            p_logits, p_value = q8.int8_heads(cfg, packed, plain)
+            for name, got, want in (
+                    ("tower", tower, plain),
+                    ("tower vs int8_tower_mm", tower,
+                     q8.int8_tower_mm(q, obs)),
+                    ("logits", k_logits, p_logits),
+                    ("value", k_value, p_value)):
+                if not torch.equal(got, want):
+                    raise AssertionError(f"int8_tower at cin 5, batch "
+                                         f"{batch}, {name}: kernel differs "
+                                         f"(tolerance 0)")
+            c4 = hold_fused_c4(cfg, folded, obs)
+            log(f"batch {batch}: int8_tower == plain and int8_tower_mm "
+                f"(tower, logits, value); fused_tower against float64 "
+                f"(kernel, plain, one bf16 step of the scale, kernel against "
+                f"plain): {c4}")
+            if batch != PENTE_BATCH:
+                continue
+            row = {"batch": batch, "cin": cfg.in_channels,
+                   "max_abs_err": 0.0,
+                   "ms": cuda_ms(lambda: t8.int8_tower(packed, obs), reps=20),
+                   "plain_ms": cuda_ms(lambda: t8.int8_tower_plain(packed,
+                                                                   obs),
+                                       reps=3, warmup=1),
+                   "library_ms": cuda_ms(lambda: q8.int8_tower_mm(q, obs),
+                                         reps=20)}
+            row["bound_ms"], row["bound_by"] = int8_tower_bound(cfg, batch)
+            rows["int8_tower"][f"pente_b{batch}"] = row
+            frow = {"batch": batch, "cin": cfg.in_channels,
+                    "max_abs_err": c4["logits"][3],
+                    "ms": cuda_ms(lambda: fn.fused_tower(folded, obs),
+                                  reps=20),
+                    "plain_ms": cuda_ms(lambda: fn.fused_tower_plain(folded,
+                                                                     obs),
+                                        reps=3, warmup=1),
+                    "library_ms": cuda_ms(lambda: fn.folded_xla_tower(
+                        xla, obs), reps=20)}
+            frow["bound_ms"], frow["bound_by"] = tower_bound(cfg, batch)
+            rows["fused_tower"][f"pente_b{batch}"] = frow
+            log(f"at batch {batch}: int8_tower {row['ms']:.4f} ms (plain "
+                f"{row['plain_ms']:.4f}, int8_tower_mm "
+                f"{row['library_ms']:.4f}, bound {row['bound_ms']:.6f} "
+                f"{row['bound_by']}); "
+                f"fused_tower {frow['ms']:.4f} ms (plain "
+                f"{frow['plain_ms']:.4f}, folded_xla_tower "
+                f"{frow['library_ms']:.4f}, bound {frow['bound_ms']:.6f} "
+                f"{frow['bound_by']}) on {smi}")
+
+    tower_eval = t8.make_int8_tower_eval_fn(cfg)
+
+    def plain_eval(p, obs):
+        logits, value = q8.int8_heads(cfg, p, t8.int8_tower_plain(p, obs))
+        return torch.softmax(logits, dim=-1), value
+
+    with Phase(f"23b Pente PUCT@{SIMS} search on the kernels (tree kernels, "
+               f"int8_tower) against the same search on the plain versions "
+               f"(batch {PENTE_BATCH})"):
+        g = phase_gen(args.seed, 223, dev)
+        states = random_states(env, PENTE_BATCH, 12, g, dev)
+        # captured pairs at the roots, so that every node's capture planes
+        # are read
+        states = states._replace(captures=torch.randint(
+            0, 5, (PENTE_BATCH, 2), generator=g, device=dev,
+            dtype=torch.int32))
+        moves = torch.full((PENTE_BATCH,), 12, dtype=torch.int32, device=dev)
+        out = {}
+        for label, ops, eval_fn in (("kernels", tk.KERNELS, tower_eval),
+                                    ("plain", tk.PLAIN, plain_eval)):
+            g = phase_gen(args.seed, 323, dev)
+            out[label] = run_mcts_packed_with_tree(
+                env, MAIN_MCTS, eval_fn, packed, states, moves, g, ops=ops)
+        for name, k, p in zip(("pi", "root_q"), out["kernels"][:2],
+                              out["plain"][:2]):
+            if not torch.equal(k, p):
+                raise AssertionError(f"Pente search {name}: kernels != "
+                                     f"plain")
+        caps = out["kernels"][2].states.captures
+        log(f"Pente search: kernels == plain exactly over {PENTE_BATCH} "
+            f"lanes (pi, root_q); {int((caps.sum(dim=-1) > 0).sum())} of "
+            f"{caps.shape[0] * caps.shape[1]} tree nodes hold captures")
+
+    sp_cfg = SelfPlayConfig(batch_games=PENTE_BATCH, mcts=MAIN_MCTS,
+                            temp_threshold=10, max_moves=MOVES)
+    gen = phase_gen(args.seed, 23, dev)
+    with Phase(f"23c Pente warm-up (batch {PENTE_BATCH}, 1 move, 8 sims)"):
+        warm = dataclasses.replace(
+            sp_cfg, max_moves=1,
+            mcts=dataclasses.replace(MAIN_MCTS, n_simulations=8))
+        play_games(env, warm, tower_eval, packed, gen, dev)
+    with Phase(f"23c Pente main path: play_games batch {PENTE_BATCH}, 6x128 "
+               f"int8 tower at cin 5, {BOARD}x{BOARD} with capture planes, "
+               f"PUCT@{SIMS}, {MOVES} moves"):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        traj = play_games(env, sp_cfg, tower_eval, packed, gen, dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()
+        moves_done = int(torch.clamp(traj.moves_played, max=MOVES).sum())
+        log(f"Pente main path: {moves_done} moves in {seconds:.3f} s = "
+            f"{moves_done / seconds:.2f} moves/s (batch {PENTE_BATCH}, 6x128 "
+            f"int8 tower, PUCT@{SIMS}, {BOARD}x{BOARD}, capture planes) on "
+            f"{smi}")
+        expect_launches("Pente PUCT main path", launches, {
+            "select_walk": MOVES * SIMS, "backup_paths": MOVES * SIMS,
+            "int8_tower": MOVES * (1 + SIMS)})
+        for name, n in launches.items():
+            rows[name]["launches_by_path"][
+                f"pente_puct{SIMS}_b{PENTE_BATCH}"] = n
+        check_trajectories(env, traj, MOVES, PENTE_BATCH)
+        log(f"captured pairs by ply {MOVES}: "
+            f"{int(traj.captures[MOVES - 1].sum())}")
+
+
+def hold_fused_c4(cfg, folded, obs):
+    """``fused_tower`` (tower, logits, value) against a float64 evaluation
+    with the same bf16 storage points: the kernel at most twice as far from
+    it as the plain version, or one bf16 step (2^-8) of the output's scale
+    (its largest magnitude; 1 for the value), whichever is larger (the card
+    tests' C4 criterion).  Returns each output's distances from float64
+    (the kernel's, the plain version's), the bf16 step, and the kernel's
+    distance from the plain version."""
+    kernel = (fn.fused_tower(folded, obs), *fn.fused_predict(cfg, folded,
+                                                             obs))
+    plain = (fn.fused_tower_plain(folded, obs),
+             *fn.folded_apply_plain(cfg, folded, obs))
+    with torch.no_grad():
+        ref = (fn.fused_tower_plain(folded, obs, torch.float64),
+               *fn.folded_apply_plain(cfg, folded, obs, torch.float64))
+    out = {}
+    for name, k, p, r in zip(("tower", "logits", "value"), kernel, plain,
+                             ref):
+        k_err = float((k.double() - r.double()).abs().max())
+        p_err = float((p.double() - r.double()).abs().max())
+        step = 2.0 ** -8 * (1.0 if name == "value"
+                            else float(r.abs().max()))
+        out[name] = (k_err, p_err, step,
+                     float((k.double() - p.double()).abs().max()))
+        if not k_err <= max(2 * p_err, step):
+            raise AssertionError(f"fused_tower {name}: {k_err} from float64, "
+                                 f"plain {p_err}, bf16 step {step}")
+    return out
+
+
+def check_stream(rec, steps: int, batch: int):
+    """A continuous stream by ``tests/test_continuous.py``'s invariants:
+    after each end an empty board and player 1; players alternate within a
+    segment; each full ply's pi sums to 1; every lane ends twice."""
+    ended = rec.ended
+    if ended.shape != (steps, batch):
+        raise AssertionError(f"ended shape {tuple(ended.shape)}")
+    if not (ended.sum(dim=0) >= 2).all():
+        raise AssertionError("a lane ended fewer than twice")
+    after = ended[:-1]
+    if (rec.boards[1:][after] != 0).any() or (rec.players[1:][after]
+                                              != 1).any():
+        raise AssertionError("a reset lane did not start a fresh game")
+    # each ply's player: 1 on a segment's first ply, alternating after
+    seg = torch.zeros(batch, dtype=torch.int64, device=ended.device)
+    for t in range(steps):
+        if not torch.equal(rec.players[t].long(), seg % 2 + 1):
+            raise AssertionError(f"ply {t}: players do not alternate")
+        seg = torch.where(ended[t], 0, seg + 1)
+    sums = rec.pis.sum(dim=-1)
+    if not torch.allclose(sums, torch.ones_like(sums), atol=1e-4):
+        raise AssertionError("a pi row does not sum to 1")
+    if not (torch.isfinite(rec.root_qs).all()
+            and rec.root_qs.abs().max() <= 1.0 + 1e-6):
+        raise AssertionError("root_q not finite or outside [-1, 1]")
+
+
+def continuous_phases(args, env, net_cfg, dev, rows, smi, int8_bundle):
+    """Phases 24a-b: continuous self-play (``play_games_continuous``,
+    Gomoku, the 6x128 int8 tower), and one training iteration on Pente with
+    capture planes in continuous mode (``train_alphazero``: 256 lanes,
+    Gumbel@64 m=16, int8t, no arena), then its snapshot reloaded bit for
+    bit."""
+    tower_eval, packed = int8_bundle
+    sp_cfg = SelfPlayConfig(batch_games=BATCH, mcts=GUMBEL_MCTS,
+                            max_moves=CONT_MAX_MOVES)
+    gen = phase_gen(args.seed, 24, dev)
+    with Phase(f"24a continuous warm-up (batch {BATCH}, 1 ply)"):
+        play_games_continuous(env, sp_cfg, tower_eval, packed, gen, 1, dev)
+    with Phase(f"24a continuous self-play: play_games_continuous batch "
+               f"{BATCH}, Gumbel@{GUMBEL_SIMS} m={GUMBEL_M}, 6x128 int8 "
+               f"tower, {BOARD}x{BOARD}, {CONT_STEPS} plies, games capped "
+               f"at {CONT_MAX_MOVES} moves"):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        rec = play_games_continuous(env, sp_cfg, tower_eval, packed, gen,
+                                    CONT_STEPS, dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()
+        plies = CONT_STEPS * BATCH
+        log(f"continuous path: {plies} moves in {seconds:.3f} s = "
+            f"{plies / seconds:.2f} moves/s (batch {BATCH}, 6x128 int8 "
+            f"tower, Gumbel@{GUMBEL_SIMS}, {BOARD}x{BOARD}); "
+            f"{int(rec.ended.sum())} games ended, "
+            f"{int((rec.winners != 0).sum())} won, on {smi}")
+        expect_launches("continuous Gumbel path", launches, {
+            "gumbel_select_walk": CONT_STEPS * GUMBEL_SIMS,
+            "backup_paths": CONT_STEPS * GUMBEL_SIMS,
+            "int8_tower": CONT_STEPS * (1 + GUMBEL_SIMS)})
+        for name, n in launches.items():
+            rows[name]["launches_by_path"][
+                f"continuous_gumbel{GUMBEL_SIMS}"] = n
+        check_stream(rec, CONT_STEPS, BATCH)
+
+    want_keys = {"iteration", "winners", "moves", "selfplay_seconds",
+                 "eval_seconds", "train_seconds", "loss", "win_rate",
+                 "win_rate_ci95", "arena_pairs", "anchor", "draws",
+                 "accepted", "buffer_size", "snapshot", "phase_seconds",
+                 "moves_per_second"}
+    with tempfile.TemporaryDirectory() as tmp:
+        with Phase(f"24b training iteration on Pente with capture planes, "
+                   f"continuous: train_alphazero, 1 iteration of {BATCH} "
+                   f"lanes x {CONT_TRAIN_STEPS} plies capped at "
+                   f"{CONT_TRAIN_MAX_MOVES} moves, Gumbel@{GUMBEL_SIMS} "
+                   f"m={GUMBEL_M}, int8t, 6x128 at cin 5, no arena"):
+            reset_launch_counts()
+            hist = train_alphazero(
+                game_name="pente", pente_capture_planes=True,
+                selfplay_mode="continuous", selfplay_steps=CONT_TRAIN_STEPS,
+                selfplay_max_moves=CONT_TRAIN_MAX_MOVES, inference="int8t",
+                mcts_search="gumbel", n_simulations=GUMBEL_SIMS,
+                gumbel_max_considered=GUMBEL_M, board_size=BOARD,
+                games_per_iteration=BATCH, num_iterations=1, eval_every=2,
+                n_res_blocks=net_cfg.n_res_blocks, channels=net_cfg.channels,
+                buffer_size=TRAIN_BUFFER, batch_size=TRAIN_BATCH,
+                epochs_per_iter=1, seed=args.seed, model_dir=tmp, device=dev)
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            expect_launches("Pente continuous training iteration", launches,
+                            {}, some=("gumbel_select_walk", "backup_paths",
+                                      "int8_tower"))
+            for name, n in launches.items():
+                rows[name]["launches_by_path"]["pente_continuous_train"] = n
+            check_history(hist, want_keys, tmp, smi)
+            if hist[0]["moves"] != CONT_TRAIN_STEPS * BATCH:
+                raise AssertionError(f"moves {hist[0]['moves']}")
+            snap = hist[0]["snapshot"]
+        with Phase("24c the Pente snapshot reloads bit for bit"):
+            model = AZModel.from_checkpoint(snap, device=dev)
+            if model.cfg.in_channels != 5:
+                raise AssertionError(f"in_channels {model.cfg.in_channels}")
+            again = os.path.join(tmp, "again.ckpt")
+            model.save(again)
+            if not trees_equal(ckpt.load_checkpoint(snap)[0],
+                               ckpt.load_checkpoint(again)[0]):
+                raise AssertionError("a reloaded Pente snapshot saved "
+                                     "different arrays")
+            log(f"{snap}: 5-plane net reloaded and saved again, every array "
+                f"equal")
+
+
 def check_history(hist, want_keys, model_dir, smi):
     """The history's keys, finite losses, the files each iteration wrote;
     prints each iteration's phases and self-play moves/s."""
@@ -1751,11 +2074,12 @@ def resnet_tower(net, obs: torch.Tensor) -> torch.Tensor:
     return h.permute(0, 2, 3, 1)
 
 
-def check_trajectories(env, traj, moves: int):
+def check_trajectories(env, traj, moves: int, batch: int = BATCH):
     """A main path's output, by the repo's own means: pi is a distribution
-    over legal moves, boards gain one stone a ply, values are finite."""
+    over legal moves, boards gain one stone a ply (less two for each pair
+    captured, in Pente), values are finite."""
     pis = traj.pis[:moves]
-    if pis.shape != (moves, BATCH, env.num_actions):
+    if pis.shape != (moves, batch, env.num_actions):
         raise AssertionError(f"pis shape {tuple(pis.shape)}")
     if not (torch.isfinite(pis).all() and torch.isfinite(traj.root_qs).all()):
         raise AssertionError("non-finite pi or root_q")
@@ -1765,9 +2089,9 @@ def check_trajectories(env, traj, moves: int):
     if not torch.allclose(sums, torch.ones_like(sums), atol=1e-5):
         raise AssertionError("pi rows do not sum to 1")
     for t in range(moves):
-        board = traj.boards[t].reshape(BATCH, -1)
-        if not torch.equal((board != 0).sum(dim=1),
-                           torch.full((BATCH,), t, device=board.device)):
+        board = traj.boards[t].reshape(batch, -1)
+        stones = (t - 2 * traj.captures[t].sum(dim=1)).long()
+        if not torch.equal((board != 0).sum(dim=1), stones):
             raise AssertionError(f"ply {t}: wrong stone count")
         if (pis[t][board != 0] != 0).any():
             raise AssertionError(f"ply {t}: pi on an occupied point")
@@ -1776,7 +2100,7 @@ def check_trajectories(env, traj, moves: int):
             raise AssertionError(f"ply {t}: a move on an occupied point")
     if traj.root_qs[:moves].abs().max() > 1.0 + 1e-6:
         raise AssertionError("root_q outside [-1, 1]")
-    log(f"trajectories: {moves} plies x {BATCH} games checked; "
+    log(f"trajectories: {moves} plies x {batch} games checked; "
         f"root_q mean {float(traj.root_qs[:moves].mean()):.4f}, pi max mean "
         f"{float(pis.max(dim=-1).values.mean()):.4f}")
 

@@ -42,11 +42,19 @@ def _assert_trees_equal(got, want):
         np.testing.assert_array_equal(g, w)
 
 
-def _boards(size, n, seed):
+def _boards(size, n, seed, cin=3):
+    """NHWC boards of random cells; with ``cin`` 5, Pente's capture planes
+    after them, k / 5 for k = 0..4 captured pairs of each side."""
     rng = np.random.default_rng(seed)
     cells = rng.integers(0, 3, (n, size, size))
-    return np.stack([cells == 1, cells == 2, np.ones_like(cells, bool)],
-                    axis=-1).astype(np.float32)
+    planes = [cells == 1, cells == 2, np.ones_like(cells, bool)]
+    planes = [p.astype(np.float32) for p in planes]
+    if cin == 5:
+        k = np.arange(2 * n).reshape(n, 2) % 5
+        rng.shuffle(k)
+        planes += [np.broadcast_to((k[:, j] / np.float32(5)).astype(
+            np.float32)[:, None, None], cells.shape) for j in (0, 1)]
+    return np.stack(planes, axis=-1).astype(np.float32)
 
 
 def test_the_five_shipped_checkpoints_are_there():
@@ -70,7 +78,8 @@ def test_shipped_checkpoint_reads_as_flax_reads_it(path):
     assert model.cfg.channels == meta["channels"]
 
 
-@pytest.mark.parametrize("name", ["best_gomoku.ckpt", "distill_3x64.ckpt"])
+@pytest.mark.parametrize("name", ["best_gomoku.ckpt", "distill_3x64.ckpt",
+                                  "best_pente.ckpt"])
 def test_shipped_net_through_the_port_matches_apply(name):
     path = str(ROOT / "checkpoints" / name)
     jm = JaxModel.from_checkpoint(path)
@@ -78,7 +87,8 @@ def test_shipped_net_through_the_port_matches_apply(name):
     params, stats = pm.jax_params()
     _assert_trees_equal(params, jax.device_get(jm.params))
     _assert_trees_equal(stats, jax.device_get(jm.batch_stats))
-    x = _boards(jm.board_size, 16, 0)
+    x = _boards(jm.board_size, 16, 0, cin=pm.cfg.in_channels)
+    assert jm.cfg.in_channels == pm.cfg.in_channels
     (logits, value), _ = apply(jm.cfg, jm.params, jm.batch_stats, x)
     net = pm.eval_net()
     with torch.no_grad():

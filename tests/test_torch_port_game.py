@@ -95,8 +95,12 @@ def test_run_length_and_wins_at_match_jax():
 def test_make_env():
     env = make_env("Gomoku", 9)
     assert isinstance(env, GomokuEnv) and env.num_actions == 81
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
-        make_env("pente")
+    pente = make_env("Pente", 9, capture_planes=True)
+    assert (pente.name, pente.num_actions, pente.obs_channels) == \
+        ("pente", 81, 5)
+    assert make_env("pente", 9).obs_channels == 3
+    # Gomoku ignores the flag
+    assert make_env("gomoku", 9, capture_planes=True).obs_channels == 3
     with pytest.raises(ValueError):
         make_env("chess")
 

@@ -118,8 +118,8 @@ def test_train_loop_kleaf_pcr_and_value_mix(tmp_path):
 @pytest.mark.parametrize("kw,match", [
     (dict(mesh=object()), "item 13"),
     (dict(replay_sharding="per_host"), "item 13"),
-    (dict(selfplay_mode="continuous"), "continuous"),
-    (dict(game_name="pente"), "item 9"),
+    (dict(selfplay_mode="continuous", mesh=object()), "continuous"),
+    (dict(game_name="pente", replay_sharding="per_host"), "item 13"),
     (dict(profile_trace_dir="trace"), "item 14"),
 ])
 def test_train_loop_refusals_name_their_item(tmp_path, kw, match):

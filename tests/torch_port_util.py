@@ -10,7 +10,11 @@ import pytest
 import torch
 
 from alphazero_gomoku_tpu.games.gomoku import GomokuState as JaxState
+from alphazero_gomoku_tpu.games.pente import PenteState as JaxPenteState
 from alphazero_gomoku_tpu_torch.games.gomoku import GomokuState as TorchState
+from alphazero_gomoku_tpu_torch.games.pente import (
+    PenteState as TorchPenteState,
+)
 
 
 @pytest.fixture(autouse=True)
@@ -59,12 +63,19 @@ def assert_walk_equal(jout, tout, depth):
     assert (pnodes[rows >= plen[None]] == -1).all()
 
 
-def to_torch_state(st) -> TorchState:
-    return TorchState(*(torch.from_numpy(np.array(x)) for x in st))
+def to_torch_state(st):
+    """A JAX state as the port's (``GomokuState`` or, with its
+    ``captures``, ``PenteState``)."""
+    kind = TorchPenteState if len(st) == len(TorchPenteState._fields) \
+        else TorchState
+    return kind(*(torch.from_numpy(np.array(x)) for x in st))
 
 
-def to_jax_state(st) -> JaxState:
-    return JaxState(*(jnp.asarray(x.cpu().numpy()) for x in st))
+def to_jax_state(st):
+    """A port state as the JAX package's."""
+    kind = JaxPenteState if len(st) == len(JaxPenteState._fields) \
+        else JaxState
+    return kind(*(jnp.asarray(x.cpu().numpy()) for x in st))
 
 
 def random_jax_states(env, batch, plies, seed):
@@ -88,7 +99,10 @@ class TableEval:
     feature of the position: ``sum(me * W1 + opp * W2) mod K`` over the board,
     with integer weight maps W1, W2 (exact in f32).  Nothing is summed in
     floating point in an order that could differ, so both searches see the
-    same numbers and their pi must be equal.
+    same numbers and their pi must be equal.  On Pente's capture planes
+    (observations of 5 planes) the feature adds ``13 * mine + 29 * theirs``,
+    the captured pairs k read back from k / 5 by thresholds, so that a
+    search that loses a node's captures sees other numbers.
     """
 
     def __init__(self, size, seed=0, k=97):
@@ -101,9 +115,18 @@ class TableEval:
         self.probs = (raw / raw.sum(1, keepdims=True)).astype(np.float32)
         self.values = rng.uniform(-0.9, 0.9, (k, 1)).astype(np.float32)
 
+    @staticmethod
+    def _pairs(plane):
+        """k of a captured-pair plane holding k / 5 (its first point)."""
+        v = plane[:, 0, 0]
+        return sum((v > t) * 1.0 for t in (0.1, 0.3, 0.5, 0.7))
+
     def jax(self, params, obs):
         del params
         f = jnp.sum(obs[..., 0] * self.w1 + obs[..., 1] * self.w2, axis=(1, 2))
+        if obs.shape[-1] == 5:
+            f = f + 13 * self._pairs(obs[..., 3]) + 29 * self._pairs(
+                obs[..., 4])
         idx = jnp.mod(f, self.k).astype(jnp.int32)
         return jnp.asarray(self.probs)[idx], jnp.asarray(self.values)[idx]
 
@@ -112,6 +135,9 @@ class TableEval:
         w1 = torch.from_numpy(self.w1).to(obs.device)
         w2 = torch.from_numpy(self.w2).to(obs.device)
         f = (obs[..., 0] * w1 + obs[..., 1] * w2).sum(dim=(1, 2))
+        if obs.shape[-1] == 5:
+            f = f + 13 * self._pairs(obs[..., 3]) + 29 * self._pairs(
+                obs[..., 4])
         idx = torch.remainder(f, self.k).long()
         return (torch.from_numpy(self.probs).to(obs.device)[idx],
                 torch.from_numpy(self.values).to(obs.device)[idx])
@@ -137,7 +163,8 @@ def assert_carry_equal(jcarry, carry, msg=""):
     jp, js, jpar, jpact = carry_to_numpy(jcarry)
     tp, ts, tpar, tpact = carry_to_numpy(carry)
     np.testing.assert_array_equal(jp, tp, err_msg=f"packed {msg}")
-    for name, x, y in zip(TorchState._fields, js, ts):
+    assert len(js) == len(ts) == len(carry.states)
+    for name, x, y in zip(type(carry.states)._fields, js, ts):
         np.testing.assert_array_equal(x, y, err_msg=f"states.{name} {msg}")
     np.testing.assert_array_equal(jpar, tpar, err_msg=f"parent {msg}")
     np.testing.assert_array_equal(jpact, tpact,
