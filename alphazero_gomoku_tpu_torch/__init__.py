@@ -7,16 +7,23 @@ docstring names its counterpart.
 
 Ported so far (the self-play main paths: PUCT@400, bench config #3, on the
 float32 net or the int8 tower, and Gumbel@64 on the fused bf16 tower, config
-#6's search; and the training iteration around them):
+#6's search; the training iteration around them; and the players that play
+a position at a time on the same searches):
 
-  - ``games``    : batched Gomoku transition functions on tensors, and the
-                   NumPy host engines.
+  - ``games``    : batched Gomoku and Pente transition functions on tensors,
+                   and the NumPy host engines (``make_host_game``).
   - ``models``   : the residual policy/value net as an ``nn.Module`` (train
                    and eval), ``make_inference``, which picks an inference
                    mode, the losses, the optimizer and ``train_step``,
-                   ``AZModel`` and AZTPU1 checkpoints.
+                   ``AZModel`` and AZTPU1 checkpoints; the reference ``.pt``
+                   importer (``torch_import``).
   - ``search``   : PUCT and Gumbel sequential halving on the packed
-                   node-tile tree.
+                   node-tile tree, at any batch size (the players' batch of
+                   one too); the heuristic pure-MCTS baseline
+                   (``pure_mcts``) on the host C scans of ``native``.
+  - ``players``  : the AlphaZero players (PUCT with tree reuse, or Gumbel;
+                   the tactical guard), the pure-MCTS and human players,
+                   ``load_player`` and ``request_move``.
   - ``ops``      : the tree kernels (``csrc/tree_kernels.cu``: PUCT walk,
                    Gumbel walk, backup), the fused bf16 tower
                    (``csrc/fused_net.cu``) and the int8 tower
@@ -26,7 +33,10 @@ float32 net or the int8 tower, and Gumbel@64 on the fused bf16 tower, config
   - ``selfplay`` : the lockstep self-play loop, the replay buffer, the arena
                    and the training loop (``train_alphazero``).
   - ``cli``      : the training CLI (``python -m
-                   alphazero_gomoku_tpu_torch.cli.train``).
+                   alphazero_gomoku_tpu_torch.cli.train``), the match and
+                   the tournament CLIs (``cli.play``, ``cli.play_loop``).
+  - ``gui``      : the terminal engine with its pygame mirror
+                   (``python -m alphazero_gomoku_tpu_torch.gui.engine``).
   - ``tools``    : the tensor-core rate probe (``csrc/matmul_rate.cu``), the
                    counterpart of the JAX repo's ``tools/mosaic_matmul_rate.py``.
   - ``repro``    : the width-1 slice write through a scratch

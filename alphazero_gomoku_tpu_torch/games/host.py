@@ -3,9 +3,9 @@
 A copy of ``alphazero_gomoku_tpu/games/host.py`` (the port imports nothing of
 the JAX package; that module imports no JAX either, so the copy is
 verbatim below this docstring).  The port uses it for the int8 calibration
-boards of the training loop (``ops/int8_net.random_play_calib_obs``); the
-players and the GUI that use it in the JAX package are not ported yet
-(ROADMAP Queue A, items 2, 4 and 12).
+boards of the training loop (``ops/int8_net.random_play_calib_obs``), and as
+the game of the play CLIs, the GUI and the pure-MCTS player
+(``games.make_host_game``).
 
   - board: ``int8[size, size]``, 0 = empty, 1/2 = players.
   - actions: flat index ``r * size + c``.

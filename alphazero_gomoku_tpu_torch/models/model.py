@@ -309,18 +309,6 @@ def train_epoch_gather(cfg: NetConfig, tx: Optimizer, params, batch_stats,
 # ----------------------------------------------------------------------
 # the host surface
 # ----------------------------------------------------------------------
-def _is_torch_file(path: str) -> bool:
-    """Cheap sniff, as the JAX package's: torch saves are zip files (or
-    legacy pickles)."""
-    if path.endswith((".pt", ".pth")):
-        return True
-    try:
-        with open(path, "rb") as f:
-            return f.read(2) in (b"PK", b"\x80\x02")
-    except OSError:
-        return False
-
-
 def _lists(tree):
     """flax's state-dict form back to the params layout: a dict keyed
     ``"0"``, ``"1"``, ... (the ``blocks`` list) becomes a list."""
@@ -469,12 +457,19 @@ class AZModel:
 
     @classmethod
     def from_checkpoint(cls, path: str, **overrides) -> "AZModel":
-        """A model sized from the checkpoint's own metadata, then loaded."""
+        """A model sized from the checkpoint's own metadata, then loaded.
+
+        Reference torch snapshots (``.pt``/``.pth``) are detected and
+        imported one-way (``models/torch_import.py``), sized from their
+        tensors; of ``overrides`` they take only ``device``, as the JAX
+        package's take none."""
+        from alphazero_gomoku_tpu_torch.models.torch_import import (
+            _is_torch_file,
+            import_torch_checkpoint,
+        )
         if _is_torch_file(path):
-            raise NotImplementedError(
-                f"{path}: reference torch snapshots (.pt) are not read by "
-                f"the port yet (ROADMAP Queue A item 7 (its Item 14): "
-                f"models/torch_import.py)")
+            return import_torch_checkpoint(path,
+                                           device=overrides.get("device"))
         meta = ckpt.peek_metadata(path)
         kwargs = dict(board_size=meta.get("board_size", 15),
                       n_res_blocks=meta.get("n_res_blocks", 3),

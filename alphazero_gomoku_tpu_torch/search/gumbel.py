@@ -15,9 +15,10 @@ improvement by planning with Gumbel", Danihelka et al., ICLR 2022):
     kernel).
   - ``sigma(q) = (c_visit + max N) * c_scale * q``.
 
-No Dirichlet noise: exploration is the root's Gumbel sample.  The port has
-no array tree (ROADMAP Queue A item 4), so the JAX module's XLA search is
-not ported; :func:`run_gumbel_mcts` runs the packed search
+No Dirichlet noise: exploration is the root's Gumbel sample.  The JAX
+module's XLA search is not ported, by design: the packed search serves every
+batch size (``search/tree.py:run_mcts_with_q``), and
+:func:`run_gumbel_mcts` runs it
 (``search/tree_packed.py:run_gumbel_packed``), which the JAX package holds
 equal to its XLA search.  The completed-Q and improved-policy math of that
 module is written here for rows of the packed layout.

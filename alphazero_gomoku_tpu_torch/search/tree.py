@@ -4,8 +4,9 @@ Counterpart of the parts of ``alphazero_gomoku_tpu/search/tree.py`` that the
 packed search uses: ``MCTSConfig``, ``symmetric_dirichlet``,
 ``_masked_priors``, ``_signed_priors``, ``terminal_leaf_value``,
 ``root_signed_priors`` and ``run_mcts_with_q``.  The XLA array-tree search of
-that module is not ported yet: every batch size runs the packed search
-(``search/tree_packed.py``).
+that module is not ported, by design: the packed search
+(``search/tree_packed.py``) serves every batch size, the players' batch of 1
+included (see :func:`run_mcts_with_q`).
 
 Search semantics (the JAX module's header lists their sources):
   - PUCT score ``W/(1+N) + cpuct * P * sqrt(sum N)/(1+N)``, illegal actions

@@ -48,7 +48,15 @@ weights made from ``--seed`` (their BN stats fitted to random boards,
     at 12 moves: kernels ``gumbel_select_walk``, ``backup_paths`` and
     ``int8_tower``; then one ``train_alphazero`` iteration on Pente with
     capture planes in continuous mode on the same kernels
-    (``continuous_phases``).
+    (``continuous_phases``);
+  - the players (``player_phases``), one position at a time (batch 1) on
+    the float32 net saved as a checkpoint and loaded by its path:
+    ``player`` (PUCT@400 with tree reuse) against ``player_alpha``
+    (Gumbel@64, round-parallel) through ``request_move``: kernels
+    ``select_walk`` and ``backup_paths`` (PUCT), ``gumbel_select_walk`` and
+    ``backup_paths`` (Gumbel); ``player_alpha2`` at its 5000 simulations
+    with reuse 5000 (the depth argument 10002); and ``cli.play_loop.main``
+    against ``player_mcts`` on the native scans.
 
 ``width1_slice_write`` is held (exactly) on the repro's shape and on rows
 whose byte count is not a multiple of 16, with C at both edges, and timed
@@ -89,17 +97,22 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import contextlib
+import glob
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
-from alphazero_gomoku_tpu_torch.games import make_env
+from alphazero_gomoku_tpu_torch.cli import play_loop
+from alphazero_gomoku_tpu_torch.games import make_env, make_host_game
 from alphazero_gomoku_tpu_torch.models import (
     NetConfig,
     bundle_of,
@@ -120,7 +133,9 @@ from alphazero_gomoku_tpu_torch.ops import _build
 from alphazero_gomoku_tpu_torch.ops import fused_net as fn
 from alphazero_gomoku_tpu_torch.ops import int8_net as q8
 from alphazero_gomoku_tpu_torch.ops import int8_tower as t8
+from alphazero_gomoku_tpu_torch.native import load_puremcts
 from alphazero_gomoku_tpu_torch.ops import tree_kernels as tk
+from alphazero_gomoku_tpu_torch.players import load_player, request_move
 from alphazero_gomoku_tpu_torch.repro import width1_slice_write as ws
 from alphazero_gomoku_tpu_torch.search import (
     MCTSConfig,
@@ -131,6 +146,7 @@ from alphazero_gomoku_tpu_torch.search.gumbel import (
     halving_schedule,
     run_gumbel_mcts,
 )
+from alphazero_gomoku_tpu_torch.search.pure_mcts import winning_cells
 from alphazero_gomoku_tpu_torch.search.tree_packed import (
     run_gumbel_packed_with_tree,
     run_mcts_packed,
@@ -217,6 +233,14 @@ PENTE_BATCH = 64
 CONT_STEPS, CONT_MAX_MOVES = 32, 12
 # its training iteration: plies and move cap
 CONT_TRAIN_STEPS, CONT_TRAIN_MAX_MOVES = 16, 8
+# the players (player_phases): the PUCT player's simulations (the shipped
+# variants' 3000, cut), the Gumbel player's, the plies of their game from
+# the opening; the tournament's games and its AlphaZero seat's simulations
+PLAYER_SIMS, PLAYER_GUMBEL_SIMS, PLAYER_PLIES = 400, 64, 8
+LOOP_GAMES, LOOP_SIMS = 2, 64
+# a depth argument above any path of player_alpha2's tree: K1 at it against
+# K1 at the node capacity times the full-depth path fill
+SHORT_DEPTH = 64
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, FP32 FLOP/s
 # (CUDA cores); the dense bf16 FLOP/s and int8 OP/s of its tensor cores are
@@ -340,12 +364,12 @@ def path_stats(plen: torch.Tensor, floor) -> dict:
                                      floor["l2_load_ms"]))
 
 
-def hold_select(tree, layout, cpuct, depth, floor):
+def hold_select(tree, layout, cpuct, depth, floor, fpu_parent=False):
     """``select_walk`` against its plain version on ``tree`` (every output,
     tolerance 0), then its times: CUDA-graph replay, one eager wrapper call,
     the plain version; its bound and floor.  Returns ``(outputs, row)``."""
-    sel = tk.select_walk(tree, layout, cpuct, depth)
-    plain = tk.select_walk_plain(tree, layout, cpuct, depth)
+    sel = tk.select_walk(tree, layout, cpuct, depth, fpu_parent)
+    plain = tk.select_walk_plain(tree, layout, cpuct, depth, fpu_parent)
     for name, k, p in zip(("leaf", "action", "path_nodes", "path_actions",
                            "path_len"), sel, plain):
         if not torch.equal(k, p):
@@ -353,12 +377,13 @@ def hold_select(tree, layout, cpuct, depth, floor):
                                  f"(tolerance 0)")
 
     def call():
-        return tk.select_walk(tree, layout, cpuct, depth)
+        return tk.select_walk(tree, layout, cpuct, depth, fpu_parent)
 
     row = dict(max_abs_err=max_abs_err(sel, plain), ms=graph_ms(call, 50),
                eager_ms=cuda_ms(call, 50),
                plain_ms=cuda_ms(lambda: tk.select_walk_plain(
-                   tree, layout, cpuct, depth), reps=10, warmup=1),
+                   tree, layout, cpuct, depth, fpu_parent), reps=10,
+                   warmup=1),
                **path_stats(sel[4], floor))
     row["bound_ms"], row["bound_by"] = select_bound(layout, sel, depth)
     log(f"select_walk: kernel == plain on every output, tolerance 0; "
@@ -771,6 +796,7 @@ def main() -> int:
     training_phases(args, env, net_cfg, dev, rows, smi)
     pente_phases(args, dev, rows, smi)
     continuous_phases(args, env, net_cfg, dev, rows, smi, int8_bundle)
+    player_phases(args, net_cfg, weights, dev, rows, smi)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi())
@@ -2000,6 +2026,371 @@ def continuous_phases(args, env, net_cfg, dev, rows, smi, int8_bundle):
                                      "different arrays")
             log(f"{snap}: 5-plane net reloaded and saved again, every array "
                 f"equal")
+
+
+def player_phases(args, net_cfg, weights, dev, rows, smi):
+    """Phases 25a-d: the players and the play entry points, on the card
+    (``device=None``), with the smoke's 6x128 net saved as an AZTPU1 file and
+    loaded by its path, as ``--p1-model`` loads one.
+
+    25a: ``player`` (PUCT, ``PLAYER_SIMS`` simulations, reuse on) against
+    ``player_alpha`` with ``search="gumbel"`` (``PLAYER_GUMBEL_SIMS``,
+    round-parallel), ``PLAYER_PLIES`` plies of one game from the opening
+    through ``request_move``, as ``cli.play.run_match`` drives them: each
+    player's think time per move, and its launches (PUCT: ``select_walk``
+    and ``backup_paths``; Gumbel: ``gumbel_select_walk`` and
+    ``backup_paths``; nothing else).  25b: both players of 25a at
+    25a's settings over three moves each (the PUCT player's fresh search,
+    then two resumes through ``packed_advance_root``) on the kernels against
+    the same players on the plain versions (``tree_ops``), pi bit for bit;
+    K1 and K2 held and timed on the PUCT player's last tree, K3 on the
+    Gumbel player's last tree at each fan its rounds walk.  25c:
+    ``player_alpha2`` at its defaults (5000 simulations, reuse 5000: depth
+    argument 10002, ``backup_paths``' shared-memory opt-in) plays two moves,
+    the second resumed; the carried tree's nodes; K1 and K2 held and timed
+    on its tree, and K1 timed at depth ``SHORT_DEPTH`` on it (the
+    full-depth path fill).  25d: ``cli.play_loop.main``,
+    ``LOOP_GAMES`` games of ``player`` against ``player_mcts`` in a
+    temporary working directory: the metrics file, every move legal, the
+    native scans loaded."""
+    a = BOARD * BOARD
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "smoke.ckpt")
+        model = AZModel(board_size=BOARD, n_res_blocks=net_cfg.n_res_blocks,
+                        channels=net_cfg.channels, device=dev)
+        model.params, model.batch_stats = split_state(
+            {k: v.to(dev) for k, v in params_from_jax(*weights).items()})
+        model.save(path)
+
+        with Phase(f"25a the players: player PUCT@{PLAYER_SIMS} (reuse "
+                   f"{PLAYER_SIMS}) against player_alpha Gumbel@"
+                   f"{PLAYER_GUMBEL_SIMS} (round-parallel), 6x128 float32, "
+                   f"{PLAYER_PLIES} plies through request_move"):
+            seats = {1: load_player("player", "gomoku", BOARD,
+                                    model_path=path,
+                                    n_simulations=PLAYER_SIMS),
+                     2: load_player("player_alpha", "gomoku", BOARD,
+                                    model_path=path, search="gumbel",
+                                    n_simulations=PLAYER_GUMBEL_SIMS)}
+            labels = {1: "player_puct", 2: "player_gumbel"}
+            game = make_host_game("gomoku", BOARD)
+            think = {1: [], 2: []}
+            searched = {1: 0, 2: 0}
+            got = {1: dict.fromkeys(KERNEL_ROWS, 0),
+                   2: dict.fromkeys(KERNEL_ROWS, 0)}
+            for turn in range(1, PLAYER_PLIES + 1):
+                seat = game.current_player
+                # a move the tactical guard makes runs no search
+                searched[seat] += not (winning_cells(game, seat).any()
+                                       or winning_cells(game, 3 - seat).any())
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                if request_move(seats[seat], game, turn, log=log) is None:
+                    raise AssertionError(f"seat {seat} forfeited")
+                think[seat].append(time.perf_counter() - t0)
+                for name, n in launch_counts().items():
+                    got[seat][name] += n
+            _, phases = halving_schedule(PLAYER_GUMBEL_SIMS, GUMBEL_M)
+            rounds = sum(visits for _, visits in phases)
+            want = {1: {"select_walk": PLAYER_SIMS * searched[1],
+                        "backup_paths": PLAYER_SIMS * searched[1]},
+                    2: {"gumbel_select_walk": rounds * searched[2],
+                        "backup_paths": PLAYER_GUMBEL_SIMS * searched[2]}}
+            for seat, sims in ((1, PLAYER_SIMS), (2, PLAYER_GUMBEL_SIMS)):
+                expect_launches(f"{labels[seat]} path", got[seat],
+                                want[seat])
+                for name, n in got[seat].items():
+                    rows[name]["launches_by_path"][labels[seat]] = n
+                times = think[seat]
+                log(f"{labels[seat]}: think time per move median "
+                    f"{statistics.median(times):.3f} s, max "
+                    f"{max(times):.3f} s over {len(times)} moves "
+                    f"({searched[seat]} searched); "
+                    f"{statistics.median(times) / sims * 1e3:.3f} ms of "
+                    f"wall a simulation (median move), batch 1, on {smi}")
+            log(f"game after {PLAYER_PLIES} plies:\n"
+                + "\n".join(" ".join(".XO"[v] for v in row)
+                            for row in game.board))
+
+        with Phase(f"25b the players' searches over 3 moves, kernels "
+                   f"against plain (batch 1, PUCT@{PLAYER_SIMS} with reuse, "
+                   f"Gumbel@{PLAYER_GUMBEL_SIMS} round-parallel, cudnn "
+                   f"deterministic)"):
+            torch.backends.cudnn.deterministic = True
+            traces = []
+            for ops in (tk.KERNELS, tk.PLAIN):
+                player = load_player("player", "gomoku", BOARD,
+                                     model_path=path,
+                                     n_simulations=PLAYER_SIMS)
+                player.tree_ops = ops
+                traces.append(player_trace(player, 3))
+            (km, ks), (pm, ps) = traces
+            if [n for n, _, _ in ks] != ["_search_fresh", "_search_resume",
+                                         "_search_resume"]:
+                raise AssertionError(f"searches {[n for n, _, _ in ks]}")
+            for (_, kpi, _), (_, ppi, _) in zip(ks, ps):
+                if not (kpi == ppi).all():
+                    raise AssertionError("PUCT player pi: kernels != plain")
+            if km != pm:
+                raise AssertionError(f"PUCT player moves: kernels {km} != "
+                                     f"plain {pm}")
+            log(f"PUCT player, fresh then 2 resumes: pi equal bit for bit "
+                f"on the kernels and the plain versions; moves {km}")
+            floor = latency_floor()
+            tree_rows = hold_player_tree(player.cfg, player.c_puct,
+                                         ks[-1][2][1], floor, args.seed)
+            rows["select_walk"]["player_tree"] = tree_rows[0]
+            rows["backup_paths"]["player_tree"] = tree_rows[1]
+
+            traces, walks = [], FanWalks()
+            for ops in (tk.KERNELS._replace(gumbel_select_walk=walks),
+                        tk.PLAIN):
+                player = load_player("player_alpha", "gomoku", BOARD,
+                                     model_path=path, search="gumbel",
+                                     n_simulations=PLAYER_GUMBEL_SIMS)
+                player.tree_ops = ops
+                traces.append(gumbel_trace(player, 3))
+            (km, kpis), (pm, ppis) = traces
+            for kpi, ppi in zip(kpis, ppis):
+                if not (kpi == ppi).all():
+                    raise AssertionError("Gumbel player pi: kernels != plain")
+            if km != pm:
+                raise AssertionError(f"Gumbel player moves: kernels {km} != "
+                                     f"plain {pm}")
+            log(f"Gumbel player, 3 moves: pi equal bit for bit on the "
+                f"kernels and the plain versions; moves {km}")
+            gumbel_rows = {}
+            for fan, (tree, root, *walk_args) in sorted(walks.kept.items()):
+                gumbel_rows[f"fan{fan}"] = hold_gumbel(tree, root, *walk_args,
+                                                       fan, floor)
+            rows["gumbel_select_walk"]["player_gumbel_tree"] = gumbel_rows
+            torch.backends.cudnn.deterministic = False
+
+        with Phase("25c player_alpha2 at its defaults (5000 sims, reuse "
+                   "5000, depth argument 10002): 2 moves, the second "
+                   "resumed; K1 and K2 on its tree"):
+            strong = load_player("player_alpha2", "gomoku", BOARD,
+                                 model_path=path)
+            depth = strong.cfg.depth_limit
+            think = []
+            reset_launch_counts()
+            moves, searches = player_trace(strong, 2, think)
+            launches = launch_counts()
+            expect_launches("player_alpha2 path", launches, {
+                "select_walk": 2 * strong.n_simulations,
+                "backup_paths": 2 * strong.n_simulations})
+            for name, n in launches.items():
+                rows[name]["launches_by_path"]["player_alpha2"] = n
+            if [n for n, _, _ in searches] != ["_search_fresh",
+                                               "_search_resume"]:
+                raise AssertionError(f"searches {[n for n, _, _ in searches]}")
+            resumed, grown = searches[1][2]
+            log(f"player_alpha2: think time {think[0]:.3f} s (fresh), "
+                f"{think[1]:.3f} s (resumed); "
+                f"{think[1] / strong.n_simulations * 1e3:.3f} ms of wall a "
+                f"simulation; carried tree after "
+                f"packed_advance_root: {tree_nodes(resumed)} nodes, after "
+                f"the search {tree_nodes(grown)} of {depth}; moves {moves}; "
+                f"on {smi}")
+            floor = latency_floor()
+            walk, back = hold_player_tree(strong.cfg, strong.c_puct, grown,
+                                          floor, args.seed)
+            rows["select_walk"]["player_alpha2_tree"] = walk
+            rows["backup_paths"]["player_alpha2_tree"] = back
+            # the path fill: the same walk at a depth argument above the
+            # tree's longest path
+            if walk["path_len_max"] >= SHORT_DEPTH:
+                raise AssertionError(f"a path of {walk['path_len_max']} hops")
+            layout = tk.packed_layout(a, strong.cfg.node_capacity)
+            tree = grown.packed
+            sel = tk.select_walk(tree, layout, strong.c_puct, depth, True)
+            short = tk.select_walk(tree, layout, strong.c_puct, SHORT_DEPTH,
+                                   True)
+            for name, x, y in zip(("leaf", "action", "path_len"),
+                                  (short[0], short[1], short[4]),
+                                  (sel[0], sel[1], sel[4])):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"select_walk at depth "
+                                         f"{SHORT_DEPTH}: {name} differs")
+            walk["ms_depth64"] = graph_ms(lambda: tk.select_walk(
+                tree, layout, strong.c_puct, SHORT_DEPTH, True), 50)
+            walk["hop_ms_depth64"] = ((walk["ms_depth64"] - floor["empty_ms"])
+                                      / walk["path_len_max"])
+            log(f"batch 1, {tree_nodes(grown)}-node tree: select_walk "
+                f"{walk['ms']:.4f} ms at depth {depth}, "
+                f"{walk['ms_depth64']:.4f} ms at depth {SHORT_DEPTH} "
+                f"({walk['hop_ms_depth64'] * 1e6:.1f} ns a hop); "
+                f"backup_paths {back['ms']:.4f} ms at depth {depth} "
+                f"(CUDA graph replay, on {smi})")
+
+        with Phase(f"25d cli.play_loop: {LOOP_GAMES} games of player "
+                   f"(PUCT@{LOOP_SIMS}, the smoke's checkpoint) against "
+                   f"player_mcts, {BOARD}x{BOARD}"):
+            if load_puremcts() is None:
+                raise AssertionError("the native scans did not load")
+            cwd = os.getcwd()
+            work = os.path.join(tmp, "play_loop")
+            os.makedirs(work)
+            os.chdir(work)
+            try:
+                reset_launch_counts()
+                with open("play_loop.log", "w") as out, \
+                        contextlib.redirect_stdout(out):
+                    play_loop.main(["player", "player_mcts", str(LOOP_GAMES),
+                                    "--size", str(BOARD), "--p1-sims",
+                                    str(LOOP_SIMS), "--p1-model", path,
+                                    "--seed", str(args.seed)])
+                launches = launch_counts()
+                files = glob.glob("metrics/*.json")
+                with open("play_loop.log") as f:
+                    tail = f.read().splitlines()[-3:]
+            finally:
+                os.chdir(cwd)
+            expect_launches("play_loop", launches, {},
+                            some=("select_walk", "backup_paths"))
+            for name, n in launches.items():
+                rows[name]["launches_by_path"]["play_loop"] = n
+            if len(files) != 1:
+                raise AssertionError(f"metrics files {files}")
+            check_tournament(os.path.join(work, files[0]))
+            log(f"{os.path.basename(files[0])}: " + "; ".join(tail))
+
+
+def player_trace(player, moves: int, think=None):
+    """``moves`` moves of ``player`` (P2) from a stone at the centre, each
+    answered by the reply its carried tree expects (``principal_reply``):
+    ``(its moves, [(search, pi, (the carry it started from, the carry it
+    returned)), ...])``; appends each move's seconds to ``think``."""
+    searches = []
+    for name in ("_search_fresh", "_search_resume"):
+        def run(*args, name=name, search=getattr(player, name)):
+            pi, carry = search(*args)
+            searches.append((name, pi, (args[0], carry)))
+            return pi, carry
+        setattr(player, name, run)
+    board = np.zeros((BOARD, BOARD), np.int8)
+    board[BOARD // 2, BOARD // 2] = 1
+    played = []
+    for turn in range(moves):
+        t0 = time.perf_counter()
+        move = player.play(board.copy(), 2 * turn + 1, None)
+        if think is not None:
+            think.append(time.perf_counter() - t0)
+        board[move] = 2
+        played.append(move)
+        board[principal_reply(player, board)] = 1
+    return played, searches
+
+
+def gumbel_trace(player, moves: int):
+    """``moves`` moves of a Gumbel ``player`` (P2) from a stone at the
+    centre, each answered on the first empty point: ``(its moves, [pi of
+    each search])``."""
+    pis = []
+    search = player._search
+
+    def run(*args):
+        pi = search(*args)
+        pis.append(pi)
+        return pi
+
+    player._search = run
+    board = np.zeros((BOARD, BOARD), np.int8)
+    board[BOARD // 2, BOARD // 2] = 1
+    played = []
+    for turn in range(moves):
+        move = player.play(board.copy(), 2 * turn + 1, None)
+        board[move] = 2
+        played.append(move)
+        board[divmod(int(np.flatnonzero(board.reshape(-1) == 0)[0]),
+                     BOARD)] = 1
+    return played, pis
+
+
+class FanWalks:
+    """``gumbel_select_walk`` that keeps a copy of the tree, the root
+    actions and the other arguments of its last call at each fan."""
+
+    def __init__(self):
+        self.kept = {}
+
+    def __call__(self, packed, root, *args):
+        self.kept[args[-1]] = (packed.clone(), root.clone(), *args[:-1])
+        return tk.gumbel_select_walk(packed, root, *args)
+
+
+def hold_player_tree(cfg, c_puct, carry, floor, seed: int):
+    """K1 (fpu parent, as the players walk) and K2 (mode backup, at depth
+    ``cfg.depth_limit``) held against their plain versions and timed on a
+    player's lane-0 tree ``carry``: ``(K1's row, K2's row)``, each with
+    ``hop_ms``, its graph-replay time less an empty launch per hop of the
+    longest path."""
+    a = BOARD * BOARD
+    layout = tk.packed_layout(a, cfg.node_capacity)
+    tree, depth = carry.packed, cfg.depth_limit
+    sel, walk = hold_select(tree, layout, c_puct, depth, floor,
+                            fpu_parent=True)
+    _, action, pnodes, pacts, plen = sel
+    gen = phase_gen(seed, 25, tree.device)
+    legal = torch.rand((1, a), generator=gen, device=tree.device) < 0.9
+    priors = torch.where(legal, torch.rand(legal.shape, generator=gen,
+                                           device=tree.device), -1.0)
+    bargs = (pnodes, pacts, plen, torch.full((1,), 0.25, device=tree.device),
+             action >= 0, cfg.node_capacity - 1, layout, priors,
+             torch.zeros(1, dtype=torch.bool, device=tree.device))
+    _, back = hold_backup(tree, bargs, "backup", floor)
+    walk["hop_ms"] = (walk["ms"] - floor["empty_ms"]) / walk["path_len_max"]
+    log(f"batch 1, {tree_nodes(carry)}-node tree of {cfg.node_capacity} "
+        f"slots ({tree.numel() * tree.element_size() / 1e6:.1f} MB packed): "
+        f"select_walk {walk['hop_ms'] * 1e6:.1f} ns a hop over "
+        f"{walk['path_len_max']} hops")
+    return walk, back
+
+
+def principal_reply(player, board):
+    """The reply a player's carried tree expects (its root's most visited
+    action), else the first empty point: the opponent plays the principal
+    variation, so the next search resumes a grown subtree."""
+    carry = player._carry
+    if carry is not None:
+        visits = carry.packed[0, tk.SL_N, :board.size]
+        if float(visits.sum()) > 0:
+            return divmod(int(torch.argmax(visits)), BOARD)
+    return divmod(int(np.flatnonzero(board.reshape(-1) == 0)[0]), BOARD)
+
+
+def tree_nodes(carry) -> int:
+    """Nodes of a lane-0 tree: the root and every slot with a parent."""
+    return 1 + int((carry.parent[0] >= 0).sum())
+
+
+def check_tournament(path: str):
+    """The tournament's metrics: its games, wins plus draws, every recorded
+    move legal when the games are replayed from their seats' move lists."""
+    with open(path) as f:
+        m = json.load(f)
+    if m["n_games"] != LOOP_GAMES or (
+            m["draws"] + sum(m["wins"].values()) != LOOP_GAMES):
+        raise AssertionError(f"metrics: {m['n_games']} games, wins "
+                             f"{m['wins']}, draws {m['draws']}")
+    names = [m["player1"][0], m["player2"][0]]
+    for i in range(1, LOOP_GAMES + 1):
+        key = f"game_{i}"
+        first = m["starting_player_per_game"][key]
+        second = names[1] if first == names[0] else names[0]
+        a, b = m["move_made"][first][key], m["move_made"][second][key]
+        if len(a) - len(b) not in (0, 1):
+            raise AssertionError(f"{key}: {len(a)} and {len(b)} moves")
+        game = make_host_game(m["game"], BOARD)
+        for k in range(len(a) + len(b)):
+            move = (a if k % 2 == 0 else b)[k // 2]
+            if not game.do_move(tuple(move)):
+                raise AssertionError(f"{key}: illegal move {move} at ply "
+                                     f"{k}")
+        if not game.is_game_over():
+            raise AssertionError(f"{key}: not over after {k + 1} plies")
+        log(f"{key}: {first} first, {k + 1} plies, winner "
+            f"{game.get_winner()}")
 
 
 def check_history(hist, want_keys, model_dir, smi):

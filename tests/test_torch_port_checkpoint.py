@@ -191,11 +191,24 @@ def test_bad_magic_and_wrong_architecture_raise(tmp_path):
                 device="cpu").load(path)
 
 
-def test_torch_snapshots_are_refused_naming_their_item(tmp_path):
+def test_torch_snapshots_are_refused_naming_their_item(tmp_path, monkeypatch,
+                                                       capsys):
+    """A ``.pt`` goes to the reference importer (``models/torch_import.py``,
+    held against the JAX importer in ``test_torch_port_torch_import.py``),
+    not to the AZTPU1 reader; a corrupt snapshot is refused there by the
+    weights-only load, with no full unpickle tried after it."""
+    from alphazero_gomoku_tpu_torch.models import torch_import
+
+    read = []
+    load = torch_import._load_state
+    monkeypatch.setattr(torch_import, "_load_state",
+                        lambda path: read.append(path) or load(path))
     pt = tmp_path / "ref.pt"
     pt.write_bytes(b"PK\x03\x04")
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+    with pytest.raises(RuntimeError):
         AZModel.from_checkpoint(str(pt), device="cpu")
+    assert read == [str(pt)]
+    assert "unpickling it in full" not in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("value", [

@@ -900,3 +900,139 @@ def test_device_mirror_sampling_equals_the_host_ring():
     np.testing.assert_array_equal(mirror.pis[ib].cpu().numpy(), want[1])
     np.testing.assert_array_equal(mirror.zs[ib].reshape(-1, 1).cpu().numpy(),
                                   want[2])
+
+
+def test_player_searches_at_batch_1_kernels_equal_plain(tmp_path):
+    """The PUCT player (a batch of one, 400 simulations, reuse 400, fpu
+    parent) over three moves, the second and third resumed through
+    ``packed_advance_root``, on the kernels equals the same player on the
+    plain versions (``tree_ops``): every pi, every move and the carried
+    tree."""
+    import numpy as np
+
+    from alphazero_gomoku_tpu_torch.models import AZModel
+    from alphazero_gomoku_tpu_torch.players.alpha_base import AlphaZeroPlayer
+
+    dev = _card()
+    ckpt = str(tmp_path / "net.ckpt")
+    AZModel(board_size=15, n_res_blocks=2, channels=32, seed=3,
+            device=dev).save(ckpt)
+    traces = []
+    for ops in (tk.KERNELS, tk.PLAIN):
+        player = AlphaZeroPlayer("gomoku", 15, n_simulations=400,
+                                 model_path=ckpt, device=dev)
+        player.tree_ops = ops
+        searches = []
+
+        def recorded(name, search):
+            def run(*args):
+                out = search(*args)
+                searches.append((name, out[0]))
+                return out
+            return run
+
+        for name in ("_search_fresh", "_search_resume"):
+            setattr(player, name, recorded(name, getattr(player, name)))
+        board = np.zeros((15, 15), np.int8)
+        board[7, 7] = 1
+        tk.reset_launch_counts()
+        trace = []
+        for turn, reply in ((1, (6, 6)), (3, (8, 9)), (5, (9, 5))):
+            move = player.play(board.copy(), turn, None)
+            board[move] = 2
+            trace += [torch.tensor(move), *_carry_tensors(player._carry)]
+            board[reply if board[reply] == 0 else (reply[0], 14)] = 1
+        assert [n for n, _ in searches] == [
+            "_search_fresh", "_search_resume", "_search_resume"]
+        trace += [torch.from_numpy(pi) for _, pi in searches]
+        if ops is tk.KERNELS:
+            assert tk.select_walk.launches == 3 * 400
+            assert tk.backup_paths.mode_launches["backup"] == 3 * 400
+            assert tk.gumbel_select_walk.launches == 0
+        traces.append(trace)
+    for x, y in zip(*traces):
+        assert torch.equal(x.cpu(), y.cpu())
+
+
+def test_gumbel_player_at_batch_1_kernels_equal_plain(tmp_path):
+    """The Gumbel player (a batch of one, 64 simulations, m = 16,
+    round-parallel: fans 16 down to 2 on a 66-slot tree) over three moves
+    on the kernels equals the same player on the plain versions: every pi
+    and every move."""
+    import numpy as np
+
+    from alphazero_gomoku_tpu_torch.models import AZModel
+    from alphazero_gomoku_tpu_torch.players.alpha_base import AlphaZeroPlayer
+
+    dev = _card()
+    ckpt = str(tmp_path / "net.ckpt")
+    AZModel(board_size=15, n_res_blocks=2, channels=32, seed=3,
+            device=dev).save(ckpt)
+    traces = []
+    for ops in (tk.KERNELS, tk.PLAIN):
+        player = AlphaZeroPlayer("gomoku", 15, n_simulations=64,
+                                 model_path=ckpt, search="gumbel",
+                                 device=dev)
+        player.tree_ops = ops
+        pis = []
+        search = player._search
+        player._search = lambda *args: pis.append(search(*args)) or pis[-1]
+        board = np.zeros((15, 15), np.int8)
+        board[7, 7] = 1
+        tk.reset_launch_counts()
+        trace = []
+        for turn, reply in ((1, (6, 6)), (3, (8, 9)), (5, (9, 5))):
+            move = player.play(board.copy(), turn, None)
+            board[move] = 2
+            trace.append(torch.tensor(move))
+            board[reply if board[reply] == 0 else (reply[0], 14)] = 1
+        trace += [torch.from_numpy(pi) for pi in pis]
+        if ops is tk.KERNELS:
+            assert len(pis) == 3
+            assert tk.gumbel_select_walk.launches == 3 * 15
+            assert tk.backup_paths.mode_launches["backup"] == 3 * 64
+            assert tk.select_walk.launches == 0
+        traces.append(trace)
+    for x, y in zip(*traces):
+        assert torch.equal(x.cpu(), y.cpu())
+
+
+def test_backup_paths_at_depth_10002_on_a_real_5000_simulation_tree():
+    """``player_alpha2``'s search shape: 5000 simulations with reuse 5000,
+    so the walks' and the backup's depth argument is the node capacity,
+    10002, and the backup's per-hop entries (80016 bytes) take the
+    shared-memory opt-in.  One walk and one backup on the grown tree, each
+    kernel against its plain version."""
+    dev = _card()
+    env = make_env("gomoku", 15)
+    cfg = NetConfig(board_size=15, action_size=225, n_res_blocks=2,
+                    channels=32)
+    net = bundle_of(cfg, *init_params(cfg, 0), device=dev)
+    mcfg = MCTSConfig(n_simulations=5000, reuse_budget=5000,
+                      fpu_mode="parent", add_noise=False)
+    depth = mcfg.depth_limit
+    assert depth == 10002
+    states = _random_states(env, 1, 4, 3, dev)
+    moves = torch.full((1,), 4, dtype=torch.int32, device=dev)
+    _, _, carry = run_mcts_packed_with_tree(env, mcfg, make_eval_fn(), net,
+                                            states, moves)
+    layout = tk.packed_layout(225, mcfg.node_capacity)
+    got = tk.select_walk(carry.packed, layout, 1.0, depth, True)
+    want = tk.select_walk_plain(carry.packed, layout, 1.0, depth, True)
+    for name, x, y in zip(("leaf", "action", "path_nodes", "path_actions",
+                           "path_len"), got, want):
+        assert torch.equal(x, y), name
+    _, action, pnodes, pacts, plen = got
+    assert pnodes.shape[0] == depth and int(plen[0]) > 1
+    g = torch.Generator(device=dev).manual_seed(4)
+    priors = torch.rand((1, 225), generator=g, device=dev)
+    args = (pnodes, pacts, plen, torch.full((1,), 0.25, device=dev),
+            action >= 0, 5001, layout, priors,
+            torch.zeros(1, dtype=torch.bool, device=dev))
+    tk.reset_launch_counts()
+    kernel = tk.backup_paths(carry.packed.clone(), *args)
+    assert tk.backup_paths.mode_launches["backup"] == 1
+    plain = tk.backup_paths_plain(carry.packed.clone(), *args)
+    torch.cuda.synchronize()
+    assert torch.equal(kernel, plain)
+    assert not torch.equal(kernel, carry.packed)
