@@ -5,10 +5,11 @@ against.  It imports ``torch`` and numpy, never ``jax`` and nothing of the
 JAX package: what it needs from there is copied in, and each module's
 docstring names its counterpart.
 
-Ported so far (the self-play main paths: PUCT@400, bench config #3, on the
-float32 net or the int8 tower, and Gumbel@64 on the fused bf16 tower, config
-#6's search; the training iteration around them; and the players that play
-a position at a time on the same searches):
+Ported: every module of the JAX package (the self-play main paths: PUCT@400,
+bench config #3, on the float32 net or the int8 tower, and Gumbel@64 on the
+fused bf16 tower, config #6's search; the training iteration around them,
+on one card or data parallel over several; and the players that play a
+position at a time on the same searches):
 
   - ``games``    : batched Gomoku and Pente transition functions on tensors,
                    and the NumPy host engines (``make_host_game``).
@@ -30,8 +31,12 @@ a position at a time on the same searches):
                    (``csrc/int8_tower.cu``) with their plain PyTorch
                    versions, BN folding, int8 quantization, and the ``nvcc``
                    build.
-  - ``selfplay`` : the lockstep self-play loop, the replay buffer, the arena
-                   and the training loop (``train_alphazero``).
+  - ``selfplay`` : the lockstep self-play loop, the replay buffer, the arena,
+                   the training loop (``train_alphazero``) and its memory
+                   preflight (``budget``).
+  - ``parallel`` : data parallelism over ``torch.distributed``, one process
+                   per card: sharded self-play, arena and training.
+  - ``utils``    : the phase timer and the ``torch.profiler`` trace.
   - ``cli``      : the training CLI (``python -m
                    alphazero_gomoku_tpu_torch.cli.train``), the match and
                    the tournament CLIs (``cli.play``, ``cli.play_loop``).

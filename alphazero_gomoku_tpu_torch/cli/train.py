@@ -4,12 +4,18 @@ Counterpart of ``alphazero_gomoku_tpu/cli/train.py:16-256``: the JAX CLI's
 flags with its defaults, and ``--device`` (default the card; ``cpu`` runs
 the port on the CPU).  ``--game pente`` (with ``--pente-capture-planes``)
 and ``--selfplay-mode continuous`` (with ``--selfplay-steps``) run.  The
-multi-host flags (``--distributed``, ``--coordinator-address``,
-``--num-processes``, ``--process-id``) are parsed and refused, as are the
-options ``train_alphazero`` refuses (a mesh, per-host replay, a profiler
-trace), each naming its ROADMAP item.
+multi-process flags join the process group before the loop
+(``parallel.initialize_distributed``), one process per card:
+``--distributed`` reads ``torchrun``'s environment, and
+``--coordinator-address`` (``host:port`` of rank 0) with
+``--num-processes`` and ``--process-id`` is an explicit rendezvous; the
+loop then runs data-parallel over the ranks (``mesh="auto"``).
+``--profile-trace-dir`` writes a ``torch.profiler`` trace of the second
+iteration (the first when only one runs).
 
     python -m alphazero_gomoku_tpu_torch.cli.train [flags]
+    torchrun --nproc_per_node N -m alphazero_gomoku_tpu_torch.cli.train \
+        --distributed [flags]
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from __future__ import annotations
 import argparse
 import sys
 
+from alphazero_gomoku_tpu_torch.parallel import initialize_distributed
 from alphazero_gomoku_tpu_torch.selfplay import train_alphazero
 
 
@@ -159,16 +166,18 @@ def build_parser() -> argparse.ArgumentParser:
                          "same int8 scheme through the int8 tower kernel "
                          "(training steps always use float32)")
     ap.add_argument("--profile-trace-dir", default=None,
-                    help="not ported yet (ROADMAP Queue A item 14): "
-                         "refused")
+                    help="write a torch.profiler (Chrome) trace of the 2nd "
+                         "iteration into this directory")
     ap.add_argument("--no-symmetries", action="store_true")
     ap.add_argument("--selfplay-mode", default="lockstep",
                     choices=["lockstep", "continuous"])
     ap.add_argument("--distributed", action="store_true",
-                    help="multi-host training: not ported yet (ROADMAP "
-                         "Queue A item 13): refused")
+                    help="multi-process: join the process group from "
+                         "torchrun's environment (one process per card; "
+                         "see parallel/distributed.py)")
     ap.add_argument("--coordinator-address", default=None,
-                    help="host:port of process 0 (multi-host: refused)")
+                    help="host:port of process 0 (an explicit rendezvous, "
+                         "with --num-processes and --process-id)")
     ap.add_argument("--num-processes", type=int, default=None)
     ap.add_argument("--process-id", type=int, default=None)
     ap.add_argument("--replay-sharding", default="replicated",
@@ -193,8 +202,13 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.distributed or args.coordinator_address:
-        raise NotImplementedError(
-            "multi-host training is not ported yet (ROADMAP Queue A item 13)")
+        initialize_distributed(
+            coordinator_address=args.coordinator_address,
+            num_processes=args.num_processes,
+            process_id=args.process_id,
+            auto=args.distributed and not args.coordinator_address,
+            device=args.device,
+        )
     train_alphazero(
         game_name=args.game,
         board_size=args.board_size,

@@ -242,19 +242,23 @@ def split_state(sd: Dict[str, torch.Tensor]):
 
 def loss_grads(cfg: NetConfig, params, batch_stats, x: torch.Tensor,
                target_pi: torch.Tensor, target_z: torch.Tensor,
-               value_loss_weight: float = 1.0):
+               value_loss_weight: float = 1.0,
+               template: Optional[ResNet] = None):
     """``(grads, new_batch_stats, metrics)``: autograd of the loss through
     the train-mode forward (batch statistics; the running ones moved, in new
     tensors) at ``params``.  Dicts by :class:`ResNet` ``state_dict`` name
     (:func:`split_state`); ``x`` NHWC observations, ``target_pi [B, A]``,
     ``target_z [B, 1]``; ``metrics`` holds the 0-d ``policy_loss``,
     ``value_loss`` and ``total_loss``.  Works in any floating type the
-    params have (float64 for a reference)."""
+    params have (float64 for a reference).  ``template`` is the train-mode
+    module the tensors run through (the data-parallel step's, whose batch
+    norms are global: ``parallel/mesh.global_bn_template``); by default a
+    :class:`ResNet` of ``cfg``."""
     p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
     stats = {k: v.clone() for k, v in batch_stats.items()}
     # train-mode BN moves the running statistics of ``stats`` in place
-    logits, value = torch.func.functional_call(_template(cfg), {**p, **stats},
-                                               (x,))
+    net = _template(cfg) if template is None else template
+    logits, value = torch.func.functional_call(net, {**p, **stats}, (x,))
     loss, metrics = alphazero_loss(logits, value, target_pi, target_z,
                                    value_loss_weight)
     grads = torch.autograd.grad(loss, list(p.values()))
@@ -276,13 +280,16 @@ def train_step(cfg: NetConfig, tx: Optimizer, params, batch_stats,
 
 
 def train_epoch(cfg: NetConfig, tx: Optimizer, params, batch_stats,
-                opt_state, xs, pis, zs, value_loss_weight: float = 1.0):
+                opt_state, xs, pis, zs, value_loss_weight: float = 1.0,
+                step=None):
     """Steps over pre-sampled batches ``[n_batches, b, ...]``; the last
     step's metrics.  Counterpart of ``train_epoch_fn``
-    (``selfplay/loop.py:76-95`` in the JAX package)."""
+    (``selfplay/loop.py:76-95`` in the JAX package).  ``step`` replaces
+    :func:`train_step` (the data-parallel epochs' step, same arguments)."""
+    step = step or train_step
     metrics = None
     for x, pi, z in zip(xs, pis, zs):
-        params, batch_stats, opt_state, metrics = train_step(
+        params, batch_stats, opt_state, metrics = step(
             cfg, tx, params, batch_stats, opt_state, x, pi, z,
             value_loss_weight)
     return params, batch_stats, opt_state, metrics
@@ -290,17 +297,20 @@ def train_epoch(cfg: NetConfig, tx: Optimizer, params, batch_stats,
 
 def train_epoch_gather(cfg: NetConfig, tx: Optimizer, params, batch_stats,
                        opt_state, dev_states, dev_pis, dev_zs, idx,
-                       inv_scales, value_loss_weight: float = 1.0):
+                       inv_scales, value_loss_weight: float = 1.0,
+                       step=None):
     """An epoch over a device-resident ring (``DeviceBufferMirror``),
     gathering each step's batch by the ``[n_batches, batch]`` index tensor
     and decoding uint8 states by one multiply by ``inv_scales``;
-    counterpart of ``train_epoch_gather_fn`` (``selfplay/loop.py:98-127``)."""
+    counterpart of ``train_epoch_gather_fn`` (``selfplay/loop.py:98-127``).
+    ``step`` as in :func:`train_epoch`."""
+    step = step or train_step
     metrics = None
     for ib in idx:
         x = dev_states[ib]
         if x.dtype == torch.uint8:
             x = x.to(torch.float32) * inv_scales
-        params, batch_stats, opt_state, metrics = train_step(
+        params, batch_stats, opt_state, metrics = step(
             cfg, tx, params, batch_stats, opt_state, x, dev_pis[ib],
             dev_zs[ib].reshape(-1, 1), value_loss_weight)
     return params, batch_stats, opt_state, metrics

@@ -1,7 +1,7 @@
 """The AlphaZero training loop: self-play -> train -> arena -> gate.
 
 Counterpart of ``alphazero_gomoku_tpu/selfplay/loop.py`` (``gate_decision``
-and ``train_alphazero``, ``:129-988``), on one device; its ``make_eval_fn``,
+and ``train_alphazero``, ``:129-988``); its ``make_eval_fn``,
 ``bundle_of`` and epochs (``:60-127``) are ``models/model.py``'s
 ``make_inference``, ``AZModel.eval_net``, ``train_epoch`` and
 ``train_epoch_gather``.  Each iteration:
@@ -45,21 +45,39 @@ Games: ``game_name`` "gomoku" or "pente"; ``pente_capture_planes`` adds
 Pente's two captured-pair planes (a 5-plane net; the int8 calibration's
 random-play boards get them as zero planes, as in the JAX loop).
 
-Not ported, each refused with an error naming its ROADMAP item: a mesh over
-more than one device (with continuous self-play, the JAX package's
-``make_sharded_selfplay_continuous``) and ``replay_sharding="per_host"``
-(Queue A item 13); ``profile_trace_dir`` (item 14).  The JAX XLA memory
-preflight (``selfplay/budget.py``) stays item 14.
+Data parallelism (``parallel/``), as the JAX loop's mesh path: with a
+:class:`~alphazero_gomoku_tpu_torch.parallel.DataMesh` (``mesh="auto"``
+makes one when a process group of more than one rank exists) every rank
+runs this loop on its own card; games are rounded up to a multiple of the
+ranks, each rank plays its share (``make_sharded_selfplay``, or the
+continuous form) and the arena's games are split the same way; with
+``replay_sharding="replicated"`` the trajectories are all-gathered so that
+every rank holds the same buffer and its mirror, and trains on its slice
+of each step's batch (``make_sharded_gather_epoch``; a batch the ranks do
+not divide trains unsharded on every rank, as in the JAX loop, and rank
+0's result is broadcast); with ``"per_host"``
+each rank keeps its own games in a buffer of ``buffer_size / ranks``, its
+own file (``replay_buffer_latest.proc{rank}of{size}.npz``), and trains on
+its own samples as its slice of the global batch.  The train gate and the
+steps per epoch read the global and the smallest buffer lengths, so that
+every rank takes the same decision.  Only rank 0 writes the snapshots and
+``best_latest.ckpt`` (the state is replicated).  Without a group (one
+process, ``mesh=None``) the mesh is one member whose shard is the whole
+batch and whose collectives are the identity: the same path, unsharded.
+
+The first self-play call checks its reckoned device memory first
+(``selfplay/budget.py``; ranks that share a card divide its margin).  ``profile_trace_dir`` traces the second
+iteration (the first when only one runs) with ``torch.profiler`` into that
+directory, each phase a named region.
 """
 
 from __future__ import annotations
 
-import contextlib
+import functools
 import os
 import time
-from collections import defaultdict
 from datetime import datetime
-from typing import Dict, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -72,8 +90,15 @@ from alphazero_gomoku_tpu_torch.models.model import (
     make_inference,
     train_epoch_gather,
 )
+from alphazero_gomoku_tpu_torch.parallel import distributed as pdist
+from alphazero_gomoku_tpu_torch.parallel import mesh as pmesh
 from alphazero_gomoku_tpu_torch.search.tree import MCTSConfig
 from alphazero_gomoku_tpu_torch.selfplay.arena import evaluate_params_detailed
+from alphazero_gomoku_tpu_torch.selfplay.budget import (
+    DEFAULT_MARGIN,
+    selfplay_memory,
+    with_preflight,
+)
 from alphazero_gomoku_tpu_torch.selfplay.buffer import (
     DeviceBufferMirror,
     ReplayBuffer,
@@ -84,41 +109,13 @@ from alphazero_gomoku_tpu_torch.selfplay.runner import (
     SelfPlayConfig,
     collect_examples,
     collect_examples_continuous,
-    play_games,
-    play_games_continuous,
 )
-
-
-class PhaseTimer:
-    """Wall seconds per named phase, across iterations; a phase on a CUDA
-    device ends with a synchronise, so that its seconds hold its device
-    work."""
-
-    def __init__(self, device: torch.device):
-        self.device = device
-        self.totals: Dict[str, float] = defaultdict(float)
-        self.counts: Dict[str, int] = defaultdict(int)
-        self.last: Dict[str, float] = {}
-
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            dt = time.perf_counter() - t0
-            self.totals[name] += dt
-            self.counts[name] += 1
-            self.last[name] = dt
-
-    def summary(self) -> Dict[str, Dict[str, float]]:
-        return {name: {"total_s": round(self.totals[name], 3),
-                       "count": self.counts[name],
-                       "mean_s": round(self.totals[name]
-                                       / max(self.counts[name], 1), 3)}
-                for name in self.totals}
+from alphazero_gomoku_tpu_torch.utils.profiling import (
+    PhaseTimer,
+    start_profiler_trace,
+    stop_profiler_trace,
+    trace_annotation,
+)
 
 
 def gate_decision(gate_stat: str, win_rate, ci95, threshold: float,
@@ -188,10 +185,6 @@ def _search_bundles(inference: str, env, seed: int, buffer,
         return eval_fn(bundle, obs)
 
     return search_eval_fn, search_bundle
-
-
-def _generator(device: torch.device, seed: int) -> torch.Generator:
-    return torch.Generator(device=device).manual_seed(int(seed))
 
 
 def train_alphazero(
@@ -270,8 +263,11 @@ def train_alphazero(
     The parameters are the JAX ``train_alphazero``'s, with its defaults (its
     docstring and comments give each one's reasons); the reference's worker
     knobs (``selfplay_*`` / ``eval_*`` workers, devices, seeds, threads) are
-    accepted and inert, as there.  ``mesh`` "auto" or None is one device.
-    ``device`` None is the card; the tests pass ``"cpu"``.
+    accepted and inert, as there.  ``mesh`` is "auto" (a mesh over the
+    process group when it has more than one rank), None (this process
+    alone) or a ``DataMesh`` (``parallel.make_mesh``), whose device is the
+    one the loop runs on.  ``device`` None is the card (the rank's with a
+    mesh); the tests pass ``"cpu"``.
 
     Each history entry has the JAX loop's keys (``iteration``, ``winners``,
     ``moves``, ``selfplay_seconds``, ``eval_seconds``, ``train_seconds``,
@@ -297,26 +293,11 @@ def train_alphazero(
         raise ValueError(
             f"pente_capture_planes=True requires game_name='pente' "
             f"(got {game_name!r})")
-    if not (mesh is None or (isinstance(mesh, str) and mesh == "auto")):
-        what = ("sharded continuous self-play "
-                "(make_sharded_selfplay_continuous)"
-                if selfplay_mode == "continuous" else "a device mesh")
-        raise NotImplementedError(
-            f"{what} is not ported yet (ROADMAP Queue A item 13); pass "
-            f"mesh=None or 'auto' for one device")
     if replay_sharding not in ("replicated", "per_host"):
         raise ValueError(f"unknown replay_sharding: {replay_sharding!r} "
                          "(expected 'replicated' or 'per_host')")
-    if replay_sharding == "per_host":
-        raise NotImplementedError(
-            "replay_sharding='per_host' needs the multi-process mesh (ROADMAP "
-            "Queue A item 13)")
     if selfplay_mode not in ("lockstep", "continuous"):
         raise ValueError(f"unknown selfplay_mode: {selfplay_mode!r}")
-    if profile_trace_dir:
-        raise NotImplementedError(
-            "profile_trace_dir: the profiler trace is not ported yet (ROADMAP "
-            "Queue A item 14)")
     if mcts_backend not in ("xla", "pallas"):
         raise ValueError(f"unknown mcts_backend: {mcts_backend!r}")
     if use_fused_inference and inference == "f32":
@@ -325,7 +306,39 @@ def train_alphazero(
     if anchor_mode not in ("puct", "gumbel"):
         raise ValueError(f"unknown anchor_search: {anchor_search!r}")
 
-    dev = resolve_device(device)
+    if isinstance(mesh, str) and mesh == "auto":
+        mesh = (pmesh.make_mesh(device=device) if pdist.world_size() > 1
+                else None)
+    elif mesh is not None and not isinstance(mesh, pmesh.DataMesh):
+        raise TypeError(f"mesh must be 'auto', None or a DataMesh "
+                        f"(parallel.make_mesh), not {type(mesh).__name__}")
+    if mesh is None:
+        # this process alone: a mesh of one member and no group, whose
+        # shard is the whole batch and whose collectives are the identity
+        mesh = pmesh.DataMesh(1, 0, resolve_device(device))
+    dev, n_ranks = mesh.device, mesh.size
+    if mesh.group is not None:
+        if games_per_iteration % n_ranks:  # both modes shard the games
+            rounded = -(-games_per_iteration // n_ranks) * n_ranks
+            log(f"[mesh] rounding games_per_iteration {games_per_iteration}"
+                f" -> {rounded} (multiple of {n_ranks} ranks)")
+            games_per_iteration = rounded
+        log(f"[mesh] data-parallel over {n_ranks} ranks ({mesh.describe()})"
+            f": gradient batch sharded, arena games split")
+    per_host_replay = replay_sharding == "per_host"
+    if per_host_replay:
+        if mesh.group is None:
+            raise ValueError("replay_sharding='per_host' requires a device "
+                             "mesh (it is a multi-process scale-out mode)")
+        if batch_size % n_ranks:
+            raise ValueError(
+                f"replay_sharding='per_host' needs batch_size ({batch_size})"
+                f" divisible by the mesh's {n_ranks} ranks")
+        # buffer_size keeps its global meaning: each rank owns a slice
+        buffer_size = max(batch_size // n_ranks, buffer_size // n_ranks)
+        log(f"[replay] per-rank sharded: {n_ranks} rank(s) x {buffer_size} "
+            f"samples, no trajectory all-gather")
+    primary = mesh.rank == 0
     os.makedirs(model_dir, exist_ok=True)
     env = make_env(game_name, board_size,
                    capture_planes=pente_capture_planes)
@@ -365,7 +378,13 @@ def train_alphazero(
             log("[anchor] anchoring to the starting weights")
             model_anchor.copy_weights_from(model_best)
 
-    buffer_path = os.path.join(model_dir, "replay_buffer_latest.npz")
+    # per-rank replay: each rank owns a unique slice of the replay
+    # distribution, so it persists its own file, keyed by its rank and the
+    # world size (a file of another world's slicing is not this rank's)
+    buffer_name = (f"replay_buffer_latest.proc{mesh.rank}of{n_ranks}.npz"
+                   if per_host_replay and n_ranks > 1
+                   else "replay_buffer_latest.npz")
+    buffer_path = os.path.join(model_dir, buffer_name)
     plane_scales = env.obs_plane_scales
     buffer = load_replay_buffer(buffer_path, capacity=buffer_size,
                                 board_size=board_size,
@@ -379,7 +398,10 @@ def train_alphazero(
         buffer = ReplayBuffer(capacity=buffer_size, board_size=board_size,
                               channels=env.obs_channels,
                               channel_scales=plane_scales)
-    dev_mirror = DeviceBufferMirror(buffer, device=dev)
+    # each rank mirrors the (replicated) ring on its own card; the per-rank
+    # replay path ships its local samples each epoch instead
+    dev_mirror = (None if per_host_replay
+                  else DeviceBufferMirror(buffer, device=dev))
 
     if inference not in INFERENCE_MODES:
         raise ValueError(f"unknown inference mode: {inference!r}")
@@ -415,28 +437,74 @@ def train_alphazero(
     anchor_cfg = match_cfg(anchor_mcts_simulations or eval_mcts_simulations,
                            anchor_mode)
 
+    # this rank's games, then the records the buffer takes: every rank's
+    # (all-gathered), or its own with per-rank replay; the arenas' games
+    # split over the ranks
+    if continuous:
+        selfplay_fn = pmesh.make_sharded_selfplay_continuous(
+            env, sp_cfg, eval_fn, mesh, total_steps=steps)
+    else:
+        selfplay_fn = pmesh.make_sharded_selfplay(env, sp_cfg, eval_fn, mesh)
+    gather_fn = (pmesh.local_trajectory_shards if per_host_replay else
+                 functools.partial(pmesh.gather_trajectories, mesh=mesh))
+    arena_half_fn = pmesh.make_sharded_arena(env, arena_cfg, eval_fn, mesh)
+    anchor_half_fn = (arena_half_fn if anchor_cfg == arena_cfg else
+                      pmesh.make_sharded_arena(env, anchor_cfg, eval_fn,
+                                               mesh))
+    # the check is a process's: ranks on one card share its memory
+    sharing = pmesh.ranks_per_device(mesh)
+    selfplay_fn = with_preflight(
+        selfplay_fn, selfplay_memory(env, pmesh.local_cfg(sp_cfg, mesh),
+                                     model_candidate.cfg,
+                                     steps if continuous else None),
+        label=f"{selfplay_mode} self-play"
+              + (f" (one of {sharing} ranks on the card)" if sharing > 1
+                 else ""),
+        margin=DEFAULT_MARGIN / sharing, device=dev)
+    # an epoch over per-rank samples (per-rank replay), or over the ring
+    # on the device, its batch sharded over the ranks; a lone process, or
+    # a batch the ranks do not divide, trains unsharded (the plain step:
+    # global batch norm's separate ops cost a step more than cuDNN's)
+    net_cfg, tx = model_candidate.cfg, model_candidate.tx
+    unsharded_epoch = not per_host_replay and (mesh.group is None
+                                               or batch_size % n_ranks)
+    if per_host_replay:
+        epoch_fn = pmesh.make_sharded_train_epoch(
+            net_cfg, tx, mesh, value_loss_weight=value_loss_weight)
+    elif unsharded_epoch:
+        if mesh.group is not None:
+            log(f"[mesh] batch_size {batch_size} not divisible by "
+                f"{n_ranks} ranks; training stays unsharded (every rank "
+                f"the whole batch, then rank 0's result)")
+        epoch_fn = functools.partial(train_epoch_gather, net_cfg, tx,
+                                     value_loss_weight=value_loss_weight)
+    else:
+        epoch_fn = pmesh.make_sharded_gather_epoch(
+            net_cfg, tx, mesh, value_loss_weight=value_loss_weight)
+
     eval_every = max(1, eval_every)
     rng_np = np.random.default_rng(seed)
     history = []
     end_iter = next_iteration_continuation + num_iterations
+    # the second iteration, as the JAX loop's (its first compiles), or the
+    # only one
+    trace_iter = (next_iteration_continuation + (num_iterations > 1)
+                  if profile_trace_dir else None)
 
     for it in range(next_iteration_continuation, end_iter):
         t_iter = time.perf_counter()
         totals_at_iter_start = dict(timer.totals)
+        if it == trace_iter:
+            log(f"[profiler] tracing iteration {it} -> "
+                f"{start_profiler_trace(profile_trace_dir)}")
         log(f"\n=== ITER {it}/{end_iter - 1}: self-play "
             f"(games={games_per_iteration}, sims={n_simulations}) "
             f"@ {datetime.now().strftime('%Y-%m-%d %H:%M:%S')} ===")
 
         # ---- phase 1: self-play --------------------------------------
         bundle_cand = search_bundle(model_candidate)
-        gen = _generator(dev, seed * 100003 + it)
-        with timer.phase("selfplay"):
-            if continuous:
-                traj = play_games_continuous(env, sp_cfg, eval_fn,
-                                             bundle_cand, gen, steps, dev)
-            else:
-                traj = play_games(env, sp_cfg, eval_fn, bundle_cand, gen,
-                                  dev)
+        with timer.phase("selfplay"), trace_annotation("selfplay"):
+            traj = gather_fn(selfplay_fn(bundle_cand, seed * 100003 + it))
         with timer.phase("collect"):
             collect = (collect_examples_continuous if continuous
                        else collect_examples)
@@ -446,9 +514,9 @@ def train_alphazero(
                 capture_planes=pente_capture_planes)
         with timer.phase("buffer"):
             written = buffer.add(states, pis, zs)
-            if len(written) == buffer.capacity:
+            if dev_mirror is not None and len(written) == buffer.capacity:
                 dev_mirror = DeviceBufferMirror(buffer, device=dev)
-            else:
+            elif dev_mirror is not None:
                 dev_mirror.sync(states, pis, zs, written)
         if continuous:
             n_moves = traj.ended.numel()
@@ -473,34 +541,60 @@ def train_alphazero(
 
         # ---- phase 2: train ------------------------------------------
         loss_info = None
-        with timer.phase("train"):
-            if len(buffer) >= batch_size:
-                n_batches = max(1, len(buffer) // batch_size)
-                log(f"training candidate: buffer={len(buffer)}, "
-                    f"batch={batch_size}, epochs={epochs_per_iter}, "
+        with timer.phase("train"), trace_annotation("train"):
+            effective_len = len(buffer)
+            if per_host_replay:
+                # the gate and steps per epoch from the global count, and
+                # no rank with an empty shard: the ranks must agree, or
+                # the sharded epoch deadlocks
+                effective_len = pmesh.global_buffer_len(len(buffer))
+                if pmesh.min_local_buffer_len(len(buffer)) == 0:
+                    effective_len = 0
+            if effective_len >= batch_size:
+                n_batches = max(1, effective_len // batch_size)
+                log(f"training candidate: buffer={len(buffer)}"
+                    + (f" local / {effective_len} global"
+                       if per_host_replay else "")
+                    + f", batch={batch_size}, epochs={epochs_per_iter}, "
                     f"steps/epoch={n_batches}")
                 for epoch in range(epochs_per_iter):
                     t1 = time.perf_counter()
-                    # the JAX loop's draws: one without-replacement choice
-                    # a step, from the same numpy generator
-                    idx = np.stack([
-                        rng_np.choice(len(buffer), size=batch_size,
-                                      replace=False)
-                        for _ in range(n_batches)]).astype(np.int64)
-                    (model_candidate.params, model_candidate.batch_stats,
-                     model_candidate.opt_state, metrics) = train_epoch_gather(
-                        model_candidate.cfg, model_candidate.tx,
-                        model_candidate.params, model_candidate.batch_stats,
-                        model_candidate.opt_state, dev_mirror.states,
-                        dev_mirror.pis, dev_mirror.zs,
-                        torch.as_tensor(idx, device=dev),
-                        dev_mirror.inv_scales, value_loss_weight)
+                    model = model_candidate
+                    if per_host_replay:
+                        # this rank's share of every step's batch, from its
+                        # own shard
+                        batches = pmesh.form_global_batches(
+                            mesh, *buffer.sample_many(
+                                n_batches, batch_size // n_ranks, rng_np))
+                        (model.params, model.batch_stats, model.opt_state,
+                         metrics) = epoch_fn(
+                            model.params, model.batch_stats,
+                            model.opt_state, *batches, local=True)
+                    else:
+                        # the JAX loop's draws: one without-replacement
+                        # choice a step, from the same numpy generator
+                        # (every rank draws the same rows of the same ring)
+                        idx = torch.as_tensor(np.stack([
+                            rng_np.choice(len(buffer), size=batch_size,
+                                          replace=False)
+                            for _ in range(n_batches)]).astype(np.int64),
+                            device=dev)
+                        (model.params, model.batch_stats, model.opt_state,
+                         metrics) = epoch_fn(
+                            model.params, model.batch_stats,
+                            model.opt_state, dev_mirror.states,
+                            dev_mirror.pis, dev_mirror.zs, idx,
+                            dev_mirror.inv_scales)
+                        if unsharded_epoch:
+                            pmesh.broadcast_from_primary(
+                                (model.params, model.batch_stats,
+                                 model.opt_state, metrics), mesh)
                     loss_info = {k: float(v) for k, v in metrics.items()}
                     log(f"  epoch {epoch + 1}/{epochs_per_iter}: "
                         f"{time.perf_counter() - t1:.1f}s, "
                         f"last_loss={loss_info}")
             else:
-                log(f"not enough samples (buffer={len(buffer)} < "
+                log(f"not enough samples (buffer={effective_len} < "
                     f"{batch_size}); skipping training this iteration")
 
         # ---- phase 3: arena ------------------------------------------
@@ -509,11 +603,12 @@ def train_alphazero(
         if run_arena:
             bundle_cand = search_bundle(model_candidate)
             bundle_best = search_bundle(model_best)
-            with timer.phase("arena"):
+            with timer.phase("arena"), trace_annotation("arena"):
                 try:
                     arena_stats = evaluate_params_detailed(
                         env, arena_cfg, eval_fn, bundle_cand, bundle_best,
-                        eval_games, seed * 7919 + it, device=dev,
+                        eval_games, seed * 7919 + it,
+                        arena_half_fn=arena_half_fn, device=dev,
                         net_cfgs=(model_candidate.cfg, model_best.cfg))
                 except Exception as e:  # keep training alive, as the JAX loop
                     log(f"evaluation failed: {e!r}")
@@ -546,7 +641,8 @@ def train_alphazero(
                         env, anchor_cfg, eval_fn,
                         search_bundle(model_candidate),
                         search_bundle(model_anchor), eval_games,
-                        seed * 104729 + it, device=dev,
+                        seed * 104729 + it, arena_half_fn=anchor_half_fn,
+                        device=dev,
                         net_cfgs=(model_candidate.cfg, model_anchor.cfg))
                     a_lo, a_hi = anchor_stats["ci95"]
                     ap = anchor_stats["pairs"]
@@ -577,9 +673,11 @@ def train_alphazero(
             log(" candidate rejected -> best unchanged (track mode)")
 
         # ---- phase 5: snapshot and buffer ----------------------------
+        # only rank 0 writes the model (replicated on every rank); the
+        # buffer too, unless each rank holds its own shard
         snapshot_path = None
         with timer.phase("checkpoint"):
-            if it % save_every == 0:
+            if primary and it % save_every == 0:
                 ts = datetime.now().strftime("%Y%m%d_%H%M%S")
                 snapshot_path = os.path.join(
                     model_dir, f"snapshot_iter{it}_{ts}.ckpt")
@@ -587,8 +685,11 @@ def train_alphazero(
                 model_candidate.save(snapshot_path)
                 model_best.save(os.path.join(model_dir, "best_latest.ckpt"))
                 log(f" saved snapshot: {snapshot_path}")
-            if it % buffer_save_every == 0 or it == end_iter - 1:
+            if (primary or per_host_replay) and (
+                    it % buffer_save_every == 0 or it == end_iter - 1):
                 save_replay_buffer(buffer, buffer_path)
+        if it == trace_iter:
+            log(f"[profiler] trace written to {stop_profiler_trace()}")
 
         it_total = time.perf_counter() - t_iter
         phase_dt = {k: timer.totals[k] - totals_at_iter_start.get(k, 0.0)

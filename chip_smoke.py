@@ -56,7 +56,17 @@ weights made from ``--seed`` (their BN stats fitted to random boards,
     ``select_walk`` and ``backup_paths`` (PUCT), ``gumbel_select_walk`` and
     ``backup_paths`` (Gumbel); ``player_alpha2`` at its 5000 simulations
     with reuse 5000 (the depth argument 10002); and ``cli.play_loop.main``
-    against ``player_mcts`` on the native scans.
+    against ``player_mcts`` on the native scans;
+  - data parallelism over ``torch.distributed`` (``parallel_phases``, phase
+    26): the shipped recipe's search (Gumbel@64 m=16, reuse 48) on the int8
+    tower at batch 256 in all, 8 moves, sharded over one rank a card over
+    NCCL and, on a one-card machine, over 2 ranks sharing the card over
+    gloo, each rank a process of this script: kernels
+    ``gumbel_select_walk``, ``backup_paths`` and ``int8_tower`` on every
+    rank; the gathered games held against the unsharded run bit for bit, a
+    sharded train step against the single-process one, a
+    ``train_alphazero`` iteration on the mesh, its ``torch.profiler`` trace
+    (which must name the three kernels) and the memory preflight.
 
 ``width1_slice_write`` is held (exactly) on the repro's shape and on rows
 whose byte count is not a multiple of 16, with C at both edges, and timed
@@ -102,6 +112,7 @@ import glob
 import json
 import math
 import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -127,6 +138,7 @@ from alphazero_gomoku_tpu_torch.models.model import (
     AZModel,
     Optimizer,
     split_state,
+    train_epoch_gather,
     train_step,
 )
 from alphazero_gomoku_tpu_torch.ops import _build
@@ -135,6 +147,15 @@ from alphazero_gomoku_tpu_torch.ops import int8_net as q8
 from alphazero_gomoku_tpu_torch.ops import int8_tower as t8
 from alphazero_gomoku_tpu_torch.native import load_puremcts
 from alphazero_gomoku_tpu_torch.ops import tree_kernels as tk
+from alphazero_gomoku_tpu_torch.parallel import (
+    DataMesh,
+    gather_trajectories,
+    initialize_distributed,
+    make_mesh,
+    make_sharded_gather_epoch,
+    make_sharded_selfplay,
+)
+from alphazero_gomoku_tpu_torch.parallel.mesh import fold_in
 from alphazero_gomoku_tpu_torch.players import load_player, request_move
 from alphazero_gomoku_tpu_torch.repro import width1_slice_write as ws
 from alphazero_gomoku_tpu_torch.search import (
@@ -154,9 +175,20 @@ from alphazero_gomoku_tpu_torch.search.tree_packed import (
 )
 from alphazero_gomoku_tpu_torch.selfplay import (
     SelfPlayConfig,
+    collect_examples,
     play_games,
     play_games_continuous,
     train_alphazero,
+)
+from alphazero_gomoku_tpu_torch.selfplay.budget import (
+    MemoryBudgetError,
+    preflight_memory_check,
+    selfplay_memory,
+    with_preflight,
+)
+from alphazero_gomoku_tpu_torch.selfplay.buffer import (
+    DeviceBufferMirror,
+    ReplayBuffer,
 )
 from alphazero_gomoku_tpu_torch.tools import latency_floor as lf
 from alphazero_gomoku_tpu_torch.tools import matmul_rate as mr
@@ -241,6 +273,17 @@ LOOP_GAMES, LOOP_SIMS = 2, 64
 # a depth argument above any path of player_alpha2's tree: K1 at it against
 # K1 at the node capacity times the full-depth path fill
 SHORT_DEPTH = 64
+# data parallelism (parallel_phases): the shipped recipe's search, its seed,
+# the timed train steps, the ring of the iteration on the mesh (cut: 8 steps
+# of its epoch, which the trace records op by op) and its arena (games and
+# simulations, cut: its games run to the end at batch 1 a rank), and the
+# seconds a group of ranks may take
+PARALLEL_MCTS = dataclasses.replace(GUMBEL_MCTS, reuse_budget=REUSE_BUDGET)
+PARALLEL_SEED = 26
+PARALLEL_TRAIN_STEPS = 8
+PARALLEL_BUFFER = 8 * TRAIN_BATCH
+PARALLEL_ARENA_GAMES, PARALLEL_ARENA_SIMS = 2, 8
+PARALLEL_TIMEOUT = 600
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, FP32 FLOP/s
 # (CUDA cores); the dense bf16 FLOP/s and int8 OP/s of its tensor cores are
@@ -645,7 +688,13 @@ def backup_bound(layout, plen, expanding, mode="backup"):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    # one rank of phase 26 (run_ranks starts them): "rank,world,port,trace"
+    # and the directory of its results
+    ap.add_argument("--parallel-worker", nargs=2, default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.parallel_worker is not None:
+        return parallel_worker(args)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs the "
               "card", file=sys.stderr)
@@ -797,6 +846,7 @@ def main() -> int:
     pente_phases(args, dev, rows, smi)
     continuous_phases(args, env, net_cfg, dev, rows, smi, int8_bundle)
     player_phases(args, net_cfg, weights, dev, rows, smi)
+    parallel_phases(args, env, net_cfg, dev, rows, smi, int8_bundle)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi())
@@ -2256,6 +2306,418 @@ def player_phases(args, net_cfg, weights, dev, rows, smi):
             log(f"{os.path.basename(files[0])}: " + "; ".join(tail))
 
 
+def parallel_phases(args, env, net_cfg, dev, rows, smi, int8_bundle):
+    """Phases 26a-d: data parallelism over ``torch.distributed``
+    (``parallel/``), one process per rank, each started from this script
+    (``--parallel-worker``, ``parallel_worker``) and run on the shipped
+    recipe's search, Gumbel@64 m=16 with reuse 48, on the int8 tower
+    (phase 11's bundle, saved and loaded by every rank), 6x128, 15x15,
+    ``BATCH`` games in all, ``MOVES`` moves.
+
+    26a: a group of ``torch.cuda.device_count()`` ranks over NCCL (one rank
+    on a one-card machine).  Each rank plays its share of the games
+    (``make_sharded_selfplay``; its K2, K3 and K5 launches counted), the
+    shards are all-gathered (``gather_trajectories``) and must equal the
+    unsharded ``play_games`` on the same seed bit for bit (a world of one is
+    the unsharded path; with more ranks each shard's own run); one sharded
+    train step (``make_sharded_gather_epoch``, global batch norm, the
+    gradient all-reduce before the clip) at batch ``TRAIN_BATCH`` on a ring
+    of those games' samples, held against ``train_epoch_gather`` by phase
+    21a's criterion, then ``PARALLEL_TRAIN_STEPS`` steps timed, beside the
+    same steps of the rank's slice with the collectives made the identity
+    (their difference is what the collectives cost a step); one
+    ``train_alphazero`` iteration on the mesh (a mesh of one rank given
+    explicitly: ``mesh="auto"`` runs a lone rank unsharded), traced
+    (``profile_trace_dir``: 26c) and without its arena, which would fill
+    the trace with the arena's batch-1 searches.
+    26b: on a one-card machine, the same at 2 ranks sharing the card over
+    gloo (NCCL refuses two ranks on a device; gloo moves the CUDA tensors
+    through host memory), held against each shard's own unsharded run, and
+    ``train_alphazero(mesh="auto")`` with its arena split over the ranks
+    (``PARALLEL_ARENA_GAMES`` games of ``PARALLEL_ARENA_SIMS`` simulations).
+    26c: the traced iteration's Chrome trace names the CUDA kernels
+    ``gumbel_select_walk``, ``backup_paths`` and the int8 tower's conv.
+    26d: the memory preflight (``selfplay/budget.py``) passes for this
+    config, its reckoning printed beside ``torch.cuda.max_memory_allocated``
+    of the real call; a config reckoned over the card's memory raises before
+    it allocates.
+    Prints moves/s per rank, all-gather ms and train ms a step, with the
+    backend and world size of each group."""
+    tower_eval, packed = int8_bundle
+    cfg = SelfPlayConfig(batch_games=BATCH, mcts=PARALLEL_MCTS,
+                         max_moves=MOVES)
+    count = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(packed, os.path.join(tmp, "bundle.pt"))
+        with Phase(f"26d preflight: the reckoning of Gumbel@{GUMBEL_SIMS} "
+                   f"m={GUMBEL_M} reuse {REUSE_BUDGET}, int8t, batch {BATCH}"
+                   f", {MOVES} moves against the card, then the real call's "
+                   f"peak (the unsharded reference run)"):
+            reck = selfplay_memory(env, cfg, net_cfg)
+            acct = preflight_memory_check(reck, label="smoke self-play",
+                                          device=dev)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ref = play_games(env, cfg, tower_eval, packed,
+                             torch.Generator(device=dev).manual_seed(
+                                 PARALLEL_SEED), dev)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            gib = 2 ** 30
+            log(f"preflight passed: reckoned {reck['peak_bytes'] / gib:.4f} "
+                f"GiB ({', '.join(f'{k} {v / gib:.4f}' for k, v in reck.items() if k != 'peak_bytes')}"
+                f") against {acct['margin']} x {acct['limit_bytes'] / gib:.2f}"
+                f" GiB; the real call's torch.cuda.max_memory_allocated "
+                f"above its start {peak / gib:.4f} GiB (ratio "
+                f"{peak / reck['peak_bytes']:.3f}) on {smi}")
+            # a batch reckoned at twice the card's memory or more
+            scale = 2 * -(-acct["limit_bytes"] // reck["peak_bytes"])
+            big = dataclasses.replace(cfg, batch_games=BATCH * scale)
+            big_reck = selfplay_memory(env, big, net_cfg)
+            before = torch.cuda.memory_allocated()
+            ran = []
+            try:
+                with_preflight(ran.append, big_reck, label="over-budget",
+                               device=dev)(big)
+            except MemoryBudgetError as e:
+                log(f"over-budget config (batch {big.batch_games}) refused "
+                    f"before it ran: {e}")
+            if ran or torch.cuda.memory_allocated() != before:
+                raise AssertionError("the preflight let an over-budget "
+                                     "config through")
+        ref = {k: (None if v is None else v.cpu())
+               for k, v in ref._asdict().items()}
+
+        groups = [("26a", "nccl", count)]
+        if count == 1:
+            groups.append(("26b", "gloo", 2))
+        for phase, backend, world in groups:
+            with Phase(f"{phase} {world} rank(s) over {backend}: sharded "
+                       f"Gumbel@{GUMBEL_SIMS} m={GUMBEL_M} reuse "
+                       f"{REUSE_BUDGET} self-play on int8t, batch {BATCH} in "
+                       f"all, {MOVES} moves; a sharded train step held and "
+                       f"{PARALLEL_TRAIN_STEPS} timed at batch {TRAIN_BATCH};"
+                       f" 1 train_alphazero iteration on the mesh"
+                       + (" (traced: 26c)" if phase == "26a" else "")):
+                out = os.path.join(tmp, phase)
+                results = run_ranks(args, world, out, trace=phase == "26a")
+                if phase == "26a":
+                    want = ref
+                else:
+                    want = shard_references(env, cfg, tower_eval, packed,
+                                            world, dev)
+                check_parallel(phase, backend, world, results, want, net_cfg,
+                               dev, rows, smi)
+                if phase == "26a":
+                    with Phase("26c the traced iteration's kernels"):
+                        check_trace(results[0]["trace"])
+
+
+def run_ranks(args, world: int, out: str, trace: bool):
+    """Start ``world`` rank processes of this script on a free port, wait
+    for them (``PARALLEL_TIMEOUT`` seconds), print their output, and load
+    each rank's results."""
+    os.makedirs(out, exist_ok=True)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK",
+                        "LOCAL_WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--seed", str(args.seed),
+         "--parallel-worker", f"{rank},{world},{port},{int(trace)}", out],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=PARALLEL_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, text) in enumerate(zip(procs, outs)):
+        for line in text.splitlines():
+            if not line.startswith("[W"):
+                log(f"  [rank {rank}] {line}")
+        if p.returncode != 0:
+            raise AssertionError(f"rank {rank} of {world} exited "
+                                 f"{p.returncode}")
+    return [torch.load(os.path.join(out, f"rank{rank}.pt"),
+                       weights_only=False) for rank in range(world)]
+
+
+def shard_references(env, cfg, eval_fn, bundle, world: int, dev):
+    """Each rank's games as one process plays them: ``play_games`` of its
+    share on the generator ``fold_in(seed, rank)``, gathered."""
+    shard = dataclasses.replace(cfg, batch_games=cfg.batch_games // world)
+    runs = [play_games(env, shard, eval_fn, bundle,
+                       torch.Generator(device=dev).manual_seed(
+                           fold_in(PARALLEL_SEED, rank)), dev)
+            for rank in range(world)]
+    return {k: torch.cat([getattr(r, k).cpu() for r in runs],
+                         dim=0 if getattr(runs[0], k).dim() == 1 else 1)
+            for k in runs[0]._fields}
+
+
+def check_parallel(phase, backend, world, results, want, net_cfg, dev, rows,
+                   smi):
+    """A group's results: the gathered records against ``want`` on every
+    active record, bit for bit, the same on every rank; each rank's
+    launches; the train step against ``train_epoch_gather`` (phase 21a's
+    criterion); the loop's history equal on every rank."""
+    active = want["active"]
+    for rank, r in enumerate(results):
+        if r["backend"] != backend or r["world"] != world:
+            raise AssertionError(f"rank {rank}: {r['backend']} world "
+                                 f"{r['world']}, expected {backend} {world}")
+        got = r["traj"]
+        if not torch.equal(got["active"], active):
+            raise AssertionError(f"rank {rank}: active records differ")
+        for k, v in want.items():
+            if v is None or k == "active":
+                continue
+            g = got[k]
+            same = (torch.equal(g, v) if v.dim() == 1
+                    else torch.equal(g[active], v[active]))
+            if not same:
+                raise AssertionError(f"{phase} rank {rank}: gathered {k} "
+                                     f"differs from the unsharded run")
+        expect_launches(f"{phase} sharded self-play, rank {rank}",
+                        r["launches"], {
+                            "gumbel_select_walk": MOVES * GUMBEL_SIMS,
+                            "backup_paths": MOVES * GUMBEL_SIMS,
+                            "int8_tower": MOVES * (1 + GUMBEL_SIMS)})
+        for name, n in r["launches"].items():
+            rows[name].setdefault("launches_by_path", {})[
+                f"sharded_{backend}{world}_rank{rank}"] = n
+        log(f"{phase} rank {rank} of {world} ({backend}, {r['mesh']}): "
+            f"{r['moves']} moves in {r['seconds']:.3f} s = "
+            f"{r['moves'] / r['seconds']:.2f} moves/s; all-gather "
+            f"{r['gather_ms']:.3f} ms; train step {r['step_ms']:.3f} ms, "
+            f"the same step with its collectives the identity "
+            f"{r['alone_ms']:.3f} ms (the collectives' share of the step "
+            f"{1 - r['alone_ms'] / r['step_ms']:.4f}; each of the two runs,"
+            f" ms a step: {r['step_times']}); on {smi}")
+    log(f"{phase}: gathered records equal the unsharded run on every active "
+        f"record ({int(active.sum())} of {active.numel()}), bit for bit, on "
+        f"every rank")
+    first = results[0]
+    for rank, r in enumerate(results[1:], 1):
+        for part in ("step", "hist"):
+            if not trees_equal(r[part], first[part]):
+                raise AssertionError(f"{phase}: rank {rank}'s {part} "
+                                     f"differs from rank 0's")
+    # one sharded step against the single-process epoch on the same ring
+    ring, idx = first["ring"], first["idx"]
+    model = AZModel(board_size=BOARD, n_res_blocks=net_cfg.n_res_blocks,
+                    channels=net_cfg.channels, seed=PARALLEL_SEED, device=dev)
+    p, s, o, m = train_epoch_gather(
+        model.cfg, model.tx, model.params, model.batch_stats, model.opt_state,
+        *(t.to(dev) for t in ring), idx.to(dev), torch.ones(3, device=dev))
+    got = first["step"]
+    worst, worst_chaotic, n_chaotic = 0.0, 0.0, 0
+    for k in p:
+        a = got["mu"][k].to(dev).double() / (1 - model.tx.b1)
+        b = o.mu[k].double() / (1 - model.tx.b1)
+        chaotic = b.abs() <= (a - b).abs() + 1e-6
+        diff = (got["params"][k].to(dev).double() - p[k].double()).abs()
+        worst = max(worst, float(torch.where(chaotic, 0.0, diff).max()))
+        worst_chaotic = max(worst_chaotic,
+                            float(torch.where(chaotic, diff, 0.0).max()))
+        n_chaotic += int(chaotic.sum())
+    loss_diff = abs(got["metrics"]["total_loss"] - float(m["total_loss"]))
+    log(f"{phase} sharded train step against train_epoch_gather: "
+        f"{n_chaotic} sign-chaotic elements within {worst_chaotic:.3e} "
+        f"(tolerance {CHAOTIC_TOL}), the others within {worst:.3e} "
+        f"(tolerance {STEP_TOL}); loss {got['metrics']['total_loss']:.6f} "
+        f"against {float(m['total_loss']):.6f}")
+    if not (worst <= STEP_TOL and worst_chaotic <= CHAOTIC_TOL
+            and loss_diff <= 1e-4):
+        raise AssertionError(f"{phase}: the sharded train step is off "
+                             f"train_epoch_gather beyond phase 21a's "
+                             f"tolerances")
+    hist, timing = first["hist"], first["hist_timing"]
+    log(f"{phase} train_alphazero on the mesh: {hist['moves']} moves at "
+        f"{timing['moves_per_second']:.2f} moves/s (rank 0), loss "
+        f"{hist['loss']}, win_rate {hist['win_rate']}, phases "
+        f"{timing['phase_seconds']}; every rank the same loss and win rate; "
+        f"files of rank 0: {first['files']}, of the others: "
+        f"{[r['files'] for r in results[1:]]}")
+    if hist["loss"] is None or not all(map(math.isfinite,
+                                           hist["loss"].values())):
+        raise AssertionError(f"{phase}: loss {hist['loss']}")
+    if "best_latest.ckpt" not in first["files"] or any(
+            r["files"] for r in results[1:]):
+        raise AssertionError(f"{phase}: only rank 0 writes the model")
+
+
+def check_trace(path: str):
+    """The Chrome trace names the three kernels of the iteration's path."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    regions = {e["name"] for e in events
+               if e.get("name") in ("selfplay", "train")}
+    want = {"gumbel_select_walk": "gumbel_select_walk",
+            "backup_paths": "backup_paths",
+            "int8_tower": "Int8Op"}
+    found = {}
+    for row, part in want.items():
+        names = sorted(n for n in kernels if part in n)
+        if not names:
+            raise AssertionError(f"the trace names no {row} kernel; its "
+                                 f"kernels: {sorted(kernels)[:40]}")
+        found[row] = names[0][:120]
+    log(f"trace {path} ({os.path.getsize(path) / 2 ** 20:.1f} MiB, "
+        f"{len(events)} events, {len(kernels)} kernel names): {found}; "
+        f"regions {sorted(regions)}")
+    if regions != {"selfplay", "train"}:
+        raise AssertionError(f"trace regions {regions}")
+
+
+def parallel_worker(args) -> int:
+    """One rank of phase 26 (``run_ranks``): joins the group, plays its
+    share of the games, gathers them, runs the train step and the timed
+    steps on a ring of the gathered samples, and one ``train_alphazero``
+    iteration; saves what the main process checks."""
+    rank, world, port, trace = (int(x) for x in args.parallel_worker[0]
+                                .split(","))
+    out = args.parallel_worker[1]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # ranks that outnumber the cards share one over gloo (NCCL refuses two
+    # ranks on a device), asked for explicitly
+    initialize_distributed(
+        f"localhost:{port}", world, rank,
+        backend="gloo" if world > torch.cuda.device_count() else "nccl")
+    try:
+        mesh = make_mesh()
+        result = parallel_rank(args, mesh, out, trace)
+    finally:
+        torch.distributed.destroy_process_group()
+    torch.save(result, os.path.join(out, f"rank{mesh.rank}.pt"))
+    print(f"rank {mesh.rank} done", flush=True)
+    return 0
+
+
+def parallel_rank(args, mesh, out, trace: bool):
+    dev = mesh.device
+    env = make_env("gomoku", BOARD)
+    net_cfg = NetConfig.full(BOARD)
+    tower_eval = t8.make_int8_tower_eval_fn(net_cfg)
+    packed = torch.load(os.path.join(os.path.dirname(out), "bundle.pt"),
+                        map_location=dev, weights_only=False)
+    cfg = SelfPlayConfig(batch_games=BATCH, mcts=PARALLEL_MCTS,
+                         max_moves=MOVES)
+    print(f"mesh: {mesh.describe()}; {torch.cuda.get_device_name(dev)}",
+          flush=True)
+    selfplay = make_sharded_selfplay(env, cfg, tower_eval, mesh)
+    warm = make_sharded_selfplay(
+        env, dataclasses.replace(cfg, max_moves=1), tower_eval, mesh)
+    warm(packed, PARALLEL_SEED)
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    local = selfplay(packed, PARALLEL_SEED)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    moves = int(local.moves_played.clamp(max=MOVES).sum())
+    gather_trajectories(local, mesh)            # a warm-up of the gather
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    traj = gather_trajectories(local, mesh)
+    torch.cuda.synchronize()
+    gather_ms = (time.perf_counter() - t0) * 1e3
+
+    # a ring of the gathered games' samples, the same on every rank
+    states, pis, zs, _ = collect_examples(traj)
+    buffer = ReplayBuffer(capacity=len(zs), board_size=BOARD, channels=3)
+    buffer.add(states, pis, zs)
+    mirror = DeviceBufferMirror(buffer, device=dev)
+    draws = np.random.default_rng(PARALLEL_SEED)
+    idx = torch.as_tensor(np.stack([
+        draws.choice(len(buffer), size=TRAIN_BATCH, replace=False)
+        for _ in range(PARALLEL_TRAIN_STEPS)]), device=dev)
+    ring = (mirror.states, mirror.pis, mirror.zs)
+    model = AZModel(board_size=BOARD, n_res_blocks=net_cfg.n_res_blocks,
+                    channels=net_cfg.channels, seed=PARALLEL_SEED,
+                    device=dev)
+    epoch = make_sharded_gather_epoch(model.cfg, model.tx, mesh)
+    start = (model.params, model.batch_stats, model.opt_state)
+    p, s, o, m = epoch(*start, *ring, idx[:1], mirror.inv_scales)
+    step = {"params": p, "mu": o.mu,
+            "metrics": {k: float(v) for k, v in m.items()}}
+    # what the collectives cost a step: the same step of this rank's slice
+    # with them made the identity (a mesh of one member, no group), timed
+    # in turn with the sharded one, each after a barrier
+    per = TRAIN_BATCH // mesh.size
+    runs = {"step": (epoch, idx),
+            "alone": (make_sharded_gather_epoch(model.cfg, model.tx,
+                                                DataMesh(1, 0, dev)),
+                      idx[:, mesh.rank * per:(mesh.rank + 1) * per])}
+    for fn, rows in runs.values():                          # warm
+        fn(*start, *ring, rows[:1], mirror.inv_scales)
+    begin = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = {k: [] for k in runs}
+    for k in ("step", "alone", "alone", "step"):
+        fn, rows = runs[k]
+        torch.distributed.barrier()
+        torch.cuda.synchronize()
+        begin.record()
+        fn(*start, *ring, rows, mirror.inv_scales)
+        end.record()
+        torch.cuda.synchronize()
+        times[k].append(begin.elapsed_time(end) / PARALLEL_TRAIN_STEPS)
+    step_ms, alone_ms = min(times["step"]), min(times["alone"])
+
+    model_dir = os.path.join(out, f"model{mesh.rank}")
+    hist = train_alphazero(
+        board_size=BOARD, games_per_iteration=BATCH,
+        n_simulations=GUMBEL_SIMS, mcts_search="gumbel",
+        gumbel_max_considered=GUMBEL_M, mcts_reuse_budget=REUSE_BUDGET,
+        mcts_backend="pallas", inference="int8t",
+        n_res_blocks=net_cfg.n_res_blocks, channels=net_cfg.channels,
+        buffer_size=PARALLEL_BUFFER, batch_size=TRAIN_BATCH,
+        epochs_per_iter=1, selfplay_max_moves=MOVES,
+        eval_games=PARALLEL_ARENA_GAMES,
+        eval_mcts_simulations=PARALLEL_ARENA_SIMS, eval_every=1 + trace,
+        gate_mode="track",
+        num_iterations=1, seed=args.seed, model_dir=model_dir,
+        mesh=mesh if mesh.size == 1 else "auto",
+        profile_trace_dir=os.path.join(out, "trace") if trace else None,
+        verbose=mesh.rank == 0)[0]
+    result = {
+        "backend": mesh.backend, "world": mesh.size, "mesh": mesh.describe(),
+        "traj": {k: (None if v is None else v.cpu())
+                 for k, v in traj._asdict().items()},
+        "launches": launches, "moves": moves, "seconds": seconds,
+        "gather_ms": gather_ms, "step_ms": step_ms, "alone_ms": alone_ms,
+        "step_times": times,
+        "step": {"params": {k: v.cpu() for k, v in step["params"].items()},
+                 "mu": {k: v.cpu() for k, v in step["mu"].items()},
+                 "metrics": step["metrics"]},
+        "ring": tuple(t.cpu() for t in ring), "idx": idx[:1].cpu(),
+        "hist": {k: hist[k] for k in ("loss", "win_rate", "moves",
+                                       "buffer_size", "winners")},
+        "files": sorted(os.listdir(model_dir)) if os.path.isdir(model_dir)
+        else []}
+    result["hist_timing"] = {
+        "moves_per_second": hist["moves_per_second"],
+        "phase_seconds": {k: round(v, 3)
+                          for k, v in hist["phase_seconds"].items()}}
+    if trace and mesh.rank == 0:
+        result["trace"] = glob.glob(os.path.join(out, "trace",
+                                                 "trace_*.json"))[0]
+    return result
+
+
 def player_trace(player, moves: int, think=None):
     """``moves`` moves of ``player`` (P2) from a stone at the centre, each
     answered by the reply its carried tree expects (``principal_reply``):
@@ -2415,10 +2877,13 @@ def check_history(hist, want_keys, model_dir, smi):
 
 
 def trees_equal(a, b) -> bool:
-    """Two checkpoint state dicts hold the same keys and equal arrays."""
+    """Two checkpoint state dicts (or nested dicts of tensors and numbers)
+    hold the same keys and equal arrays and values."""
     if isinstance(a, dict):
         return (isinstance(b, dict) and a.keys() == b.keys()
                 and all(trees_equal(a[k], b[k]) for k in a))
+    if not hasattr(a, "dtype"):
+        return a == b
     return (a.dtype == b.dtype and a.shape == b.shape
             and bool((a == b).all()))
 

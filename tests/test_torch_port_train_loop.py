@@ -116,14 +116,18 @@ def test_train_loop_kleaf_pcr_and_value_mix(tmp_path):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(mesh=object()), "item 13"),
-    (dict(replay_sharding="per_host"), "item 13"),
-    (dict(selfplay_mode="continuous", mesh=object()), "continuous"),
-    (dict(game_name="pente", replay_sharding="per_host"), "item 13"),
-    (dict(profile_trace_dir="trace"), "item 14"),
+    (dict(mesh=object()), "DataMesh"),
+    (dict(replay_sharding="per_host"), "requires a device mesh"),
+    (dict(selfplay_mode="continuous", mesh=object()), "DataMesh"),
+    (dict(game_name="pente", replay_sharding="per_host"),
+     "requires a device mesh"),
+    (dict(mesh="all"), "DataMesh"),
 ])
 def test_train_loop_refusals_name_their_item(tmp_path, kw, match):
-    with pytest.raises(NotImplementedError, match=match):
+    """What the loop still refuses, as the JAX loop does: a mesh that is
+    not one (the mesh path itself is ``tests/test_torch_port_parallel.py``
+    and ``_multiprocess.py``), and per-host replay without a mesh."""
+    with pytest.raises((TypeError, ValueError), match=match):
         train_alphazero(num_iterations=1, **_common(tmp_path, **kw))
 
 
@@ -147,7 +151,7 @@ def test_cli_takes_the_jax_flags_and_defaults():
     assert ours["device"] is None
 
 
-def test_cli_runs_on_the_cpu(tmp_path, capsys):
+def test_cli_runs_on_the_cpu(tmp_path, capsys, monkeypatch):
     assert pcli.main([
         "--board-size", "7", "--num-iterations", "1",
         "--games-per-iteration", "2", "--n-simulations", "4",
@@ -159,7 +163,10 @@ def test_cli_runs_on_the_cpu(tmp_path, capsys):
     assert "=== ITER 1/1" in out and "training complete" in out
     assert AZModel.from_checkpoint(str(tmp_path / "cli" / "best_latest.ckpt"),
                                    device="cpu").cfg.channels == 8
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # --distributed reads torchrun's environment, and says so without it
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
         pcli.main(["--distributed", "--device", "cpu"])
 
 
