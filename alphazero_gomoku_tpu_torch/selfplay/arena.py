@@ -5,8 +5,8 @@ Counterpart of ``alphazero_gomoku_tpu/selfplay/arena.py:38-200``:
   - a random opening move for player 1 in the centre 9x9 (radius 4), or
     the whole board where it is smaller;
   - the search with noise off, the move its policy's argmax, both nets'
-    searches on the port's packed tree (``run_mcts_with_q``: PUCT, or
-    Gumbel when the config says so);
+    searches on the port's packed tree (PUCT, or Gumbel when the config
+    says so);
   - the loop advances a pair of plies at a time (P2's move, then P1's), so
     that each search uses one net; finished games are frozen by
     ``step_safe``, and a game unfinished at the cap is a draw;
@@ -21,53 +21,122 @@ env plays (Gomoku, or Pente with or without capture planes: the nets read
 ``env.encode``'s planes).  The two nets must read the same observation
 planes: :func:`evaluate_params_detailed` refuses configs whose
 ``in_channels`` differ (ADVICE.md r5, P3).
+
+The loop itself is :func:`sides_half`, which also plays two *sides* that
+differ in search, network or bundle, with a tree carried from move to move
+on either (the A/B tools of ``tools/``, ``tools/ab_arena.py``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from alphazero_gomoku_tpu_torch.device import resolve_device
-from alphazero_gomoku_tpu_torch.search.tree import (
-    EvalFn,
-    MCTSConfig,
-    run_mcts_with_q,
+from alphazero_gomoku_tpu_torch.search.tree import EvalFn, MCTSConfig
+from alphazero_gomoku_tpu_torch.search.tree_packed import (
+    init_packed_carry,
+    packed_advance_root,
+    run_gumbel_packed_with_tree,
+    run_mcts_packed_with_tree,
 )
 
 OPENING_RADIUS = 4  # the centre 9x9
 
 
-def arena_half(env, cfg: MCTSConfig, eval_fn: EvalFn, params_p1, params_p2,
-               n_games: int, seed: int, device=None) -> torch.Tensor:
-    """Play ``n_games`` lockstep games, P1 on ``params_p1`` and P2 on
-    ``params_p2``; the winners ``[n_games]`` (int32: 0 draw, 1, 2)."""
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(int(seed))
+class Side(NamedTuple):
+    """One side of an arena: its search config, eval function and bundle.
+
+    A config with ``reuse_budget > 0`` carries the side's tree from move to
+    move (a ``PackedCarry`` made at the position after the opening and
+    re-rooted by ``packed_advance_root`` at every ply, its own and the
+    opponent's).  ``play_winner`` plays a Gumbel search's sequential-halving
+    winner; otherwise the side plays its policy's argmax (for Gumbel, the
+    improved policy's, as the arena of the training loop does).
+    """
+
+    cfg: MCTSConfig
+    eval_fn: EvalFn
+    bundle: Any
+    play_winner: bool = False
+
+
+def centre_openings(env, n_games: int, generator: torch.Generator,
+                    device=None) -> torch.Tensor:
+    """Player 1's opening actions ``[n_games]``, uniform over the centre 9x9
+    cut to the board: rows, then columns, from ``generator``."""
     size = env.size
     center = size // 2
-    # the centre 9x9, cut to the board: the JAX arena draws rows and columns
-    # outside a board smaller than 9x9 (ROADMAP Queue C, P5)
+    # the JAX arena draws rows and columns outside a board smaller than 9x9
+    # (ROADMAP Queue C, P5)
     lo = max(0, center - OPENING_RADIUS)
     hi = min(size, center + OPENING_RADIUS + 1)
-    r0 = torch.randint(lo, hi, (n_games,), generator=gen, device=dev)
-    c0 = torch.randint(lo, hi, (n_games,), generator=gen, device=dev)
-    states = env.step(env.init_batch(n_games, dev), r0 * size + c0)
-    zeros = torch.zeros((n_games,), dtype=torch.int32, device=dev)
+    r0 = torch.randint(lo, hi, (n_games,), generator=generator, device=device)
+    c0 = torch.randint(lo, hi, (n_games,), generator=generator, device=device)
+    return r0 * size + c0
 
-    def half_move(states, params):
-        pi, _ = run_mcts_with_q(env, cfg, eval_fn, params, states, zeros,
-                                gen)
-        return env.step_safe(states, torch.argmax(pi, dim=-1))
+
+def sides_half(env, side_p1: Side, side_p2: Side, n_games: int, seed: int,
+               device=None, openings: Optional[torch.Tensor] = None,
+               uniforms: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Play ``n_games`` lockstep games, P1 searching as ``side_p1`` and P2
+    as ``side_p2``; the winners ``[n_games]`` (int32: 0 draw, 1, 2).
+
+    ``openings`` (``[>= n_games]`` actions) replaces the random opening, and
+    ``uniforms`` (``[n_games, A]``) the root uniforms of every Gumbel search:
+    tests inject the JAX package's draws.  Otherwise both come from a
+    generator seeded with ``seed``: the openings, then each ply's search.
+    """
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    if openings is None:
+        openings = centre_openings(env, n_games, gen, dev)
+    states = env.step(env.init_batch(n_games, dev),
+                      torch.as_tensor(openings[:n_games], device=dev))
+    zeros = torch.zeros((n_games,), dtype=torch.int32, device=dev)
+    sides = (side_p1, side_p2)
+    carries = [init_packed_carry(env, s.cfg, states)
+               if s.cfg.reuse_budget > 0 else None for s in sides]
+
+    def move(i, states):
+        side, carry = sides[i], carries[i]
+        cfg = side.cfg
+        if cfg.search == "gumbel":
+            pi, _, winner, carry = run_gumbel_packed_with_tree(
+                env, cfg, side.eval_fn, side.bundle, states, gen,
+                uniforms=uniforms, carry=carry)
+        else:
+            pi, _, carry = run_mcts_packed_with_tree(
+                env, cfg, side.eval_fn, side.bundle, states, zeros, gen,
+                carry=carry)
+        if carries[i] is not None:
+            carries[i] = carry
+        return winner if side.play_winner else torch.argmax(pi, dim=-1)
 
     for _ in range((env.num_actions + 1) // 2):
         if bool(states.done.all()):
             break
-        states = half_move(states, params_p2)   # P2 to move first
-        states = half_move(states, params_p1)
+        for i in (1, 0):                # P2 to move first, then P1
+            action = move(i, states)
+            states = env.step_safe(states, action)
+            for j, carry in enumerate(carries):
+                if carry is not None:
+                    carries[j] = packed_advance_root(env, sides[j].cfg, carry,
+                                                     action)
     return states.winner
+
+
+def arena_half(env, cfg: MCTSConfig, eval_fn: EvalFn, params_p1, params_p2,
+               n_games: int, seed: int, device=None,
+               openings: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Play ``n_games`` lockstep games, P1 on ``params_p1`` and P2 on
+    ``params_p2``, both searching with ``cfg`` (:func:`sides_half`); the
+    winners ``[n_games]`` (int32: 0 draw, 1, 2)."""
+    return sides_half(env, Side(cfg, eval_fn, params_p1),
+                      Side(cfg, eval_fn, params_p2), n_games, seed, device,
+                      openings=openings)
 
 
 def wilson_ci(wins: int, n: int, z: float = 1.96) -> Tuple[float, float]:
@@ -85,7 +154,9 @@ def wilson_ci(wins: int, n: int, z: float = 1.96) -> Tuple[float, float]:
 def evaluate_params_detailed(env, cfg: MCTSConfig, eval_fn: EvalFn,
                              params_new, params_best, n_games: int,
                              seed: int, arena_half_fn=None, device=None,
-                             net_cfgs=None) -> Dict[str, object]:
+                             net_cfgs=None,
+                             openings: Optional[torch.Tensor] = None
+                             ) -> Dict[str, object]:
     """Candidate-vs-best arena with mirrored openings.
 
     The candidate is P1 in ceil(n/2) games and P2 in the rest; both halves
@@ -93,8 +164,9 @@ def evaluate_params_detailed(env, cfg: MCTSConfig, eval_fn: EvalFn,
     against), ``ci95`` (Wilson) and ``pairs`` (``win_both / split /
     loss_both / n`` over the mirrored openings).
     ``arena_half_fn(p1, p2, n, seed) -> winners`` replaces
-    :func:`arena_half`.  ``net_cfgs``, the two nets' ``NetConfig`` where
-    known, must agree on ``in_channels``.
+    :func:`arena_half`, to which ``openings`` goes (both halves open with
+    them).  ``net_cfgs``, the two nets' ``NetConfig`` where known, must
+    agree on ``in_channels``.
     """
     if net_cfgs is not None:
         a, b = (c.in_channels for c in net_cfgs)
@@ -105,7 +177,8 @@ def evaluate_params_detailed(env, cfg: MCTSConfig, eval_fn: EvalFn,
     n_as_p2 = n_games // 2
     if arena_half_fn is None:
         def arena_half_fn(p1, p2, n, s):
-            return arena_half(env, cfg, eval_fn, p1, p2, n, s, device)
+            return arena_half(env, cfg, eval_fn, p1, p2, n, s, device,
+                              openings)
 
     new_wins = draws = played = 0
     w_a = w_b = None

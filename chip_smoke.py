@@ -66,7 +66,20 @@ weights made from ``--seed`` (their BN stats fitted to random boards,
     rank; the gathered games held against the unsharded run bit for bit, a
     sharded train step against the single-process one, a
     ``train_alphazero`` iteration on the mesh, its ``torch.profiler`` trace
-    (which must name the three kernels) and the memory preflight.
+    (which must name the three kernels) and the memory preflight;
+  - the bench (``bench_phases``, phase 27), ``alphazero_gomoku_tpu_torch/
+    bench.py``'s ``run_bench`` at its configs' shapes, 6x128 (config #2:
+    2x64), 15x15, each cut to a few moves and 2 repeats: #3 on ``int8t``
+    (batch 128) and on ``int8``, #4 Pente (batch 64), #6 Gumbel@64 (batch
+    256), #2 (batch 1, PUCT@100, float32) and ``--kleaf 4``, each with its
+    JSON line and its path's kernels (``bench_launches``); then config #1
+    (``bench_pure_mcts``, host only) and config #5
+    (``bench_training_iteration``, 16 games at 16 simulations) cut;
+  - the arena tools (``tool_phases``, phase 28) through their ``main`` on
+    the shipped checkpoints (``checkpoints/``): ``int8_ab``,
+    ``compare_snapshots``, ``cross_net_arena``, ``gumbel_ab``, ``reuse_ab``,
+    ``kleaf_ab``, ``harvest_run`` and ``strength_probe``, each with the
+    games asked for, its pairs adding up, and its searches' kernels.
 
 ``width1_slice_write`` is held (exactly) on the repro's shape and on rows
 whose byte count is not a multiple of 16, with C at both edges, and timed
@@ -109,6 +122,7 @@ import argparse
 import dataclasses
 import contextlib
 import glob
+import io
 import json
 import math
 import os
@@ -122,6 +136,7 @@ import time
 import numpy as np
 import torch
 
+from alphazero_gomoku_tpu_torch import bench
 from alphazero_gomoku_tpu_torch.cli import play_loop
 from alphazero_gomoku_tpu_torch.games import make_env, make_host_game
 from alphazero_gomoku_tpu_torch.models import (
@@ -189,6 +204,16 @@ from alphazero_gomoku_tpu_torch.selfplay.budget import (
 from alphazero_gomoku_tpu_torch.selfplay.buffer import (
     DeviceBufferMirror,
     ReplayBuffer,
+)
+from alphazero_gomoku_tpu_torch.tools import (
+    compare_snapshots,
+    cross_net_arena,
+    gumbel_ab,
+    harvest_run,
+    int8_ab,
+    kleaf_ab,
+    reuse_ab,
+    strength_probe,
 )
 from alphazero_gomoku_tpu_torch.tools import latency_floor as lf
 from alphazero_gomoku_tpu_torch.tools import matmul_rate as mr
@@ -284,6 +309,32 @@ PARALLEL_TRAIN_STEPS = 8
 PARALLEL_BUFFER = 8 * TRAIN_BATCH
 PARALLEL_ARENA_GAMES, PARALLEL_ARENA_SIMS = 2, 8
 PARALLEL_TIMEOUT = 600
+
+# the bench (bench_phases, phase 27): bench.py's configs at full width, each
+# cut to a few moves and 2 repeats (after its warm-up call), as
+# (label, run_bench arguments)
+BENCH_WIDTH = dict(board_size=BOARD, n_res_blocks=6, channels=128)
+BENCH_REPEATS = 2
+BENCH_RUNS = (
+    ("3_int8t", dict(batch_games=128, measure_moves=4, infer="int8t")),
+    ("3_int8", dict(batch_games=128, measure_moves=2, infer="int8")),
+    ("4_pente", dict(game="pente", batch_games=64, measure_moves=4,
+                     infer="int8t", vs_baseline=None)),
+    ("6_gumbel64", dict(batch_games=256, n_simulations=64, search="gumbel",
+                        measure_moves=8, infer="int8t")),
+    ("2_tiny_net", dict(batch_games=1, n_simulations=100, n_res_blocks=2,
+                        channels=64, measure_moves=4, vs_baseline=None)),
+    ("kleaf4", dict(batch_games=256, measure_moves=2, infer="int8t",
+                    leaves_per_sim=KLEAF)),
+)
+# config #1 and config #5, cut: seconds and games of the host baseline;
+# games, simulations and arena games of the training iteration
+BENCH_PURE = dict(min_seconds=2, min_games=1, max_moves_per_game=4)
+BENCH_TRAIN = dict(games=16, n_simulations=16, eval_games=2)
+# the tools (tool_phases, phase 28): games and simulations a tool plays
+TOOL_GAMES, TOOL_SIMS = 4, 8
+CHECKPOINTS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "checkpoints")
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, FP32 FLOP/s
 # (CUDA cores); the dense bf16 FLOP/s and int8 OP/s of its tensor cores are
@@ -847,6 +898,8 @@ def main() -> int:
     continuous_phases(args, env, net_cfg, dev, rows, smi, int8_bundle)
     player_phases(args, net_cfg, weights, dev, rows, smi)
     parallel_phases(args, env, net_cfg, dev, rows, smi, int8_bundle)
+    bench_phases(dev, rows)
+    tool_phases(dev, rows, smi)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi())
@@ -854,6 +907,207 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)
     return 0
+
+
+def bench_launches(kw: dict, calls: int) -> dict:
+    """The launches ``calls`` calls of ``run_bench(**kw)`` make, no game
+    ending: a walk and a backup a simulation (k-leaf: a walk, a ``vl`` and
+    a ``finalize`` backup), and with ``int8t`` a tower call a network call
+    (the root's and one a simulation, or one a k-leaf step)."""
+    sims = kw.get("n_simulations", 400)
+    k = kw.get("leaves_per_sim", 1)
+    n = calls * kw["measure_moves"]
+    want = {}
+    if kw.get("search") == "gumbel":
+        want.update(gumbel_select_walk=n * sims, backup_paths=n * sims)
+    elif k > 1:
+        want.update(select_walk=n * sims, backup_paths_vl=n * sims,
+                    backup_paths_finalize=n * sims)
+    else:
+        want.update(select_walk=n * sims, backup_paths=n * sims)
+    if kw.get("infer") == "int8t":
+        want["int8_tower"] = n * (1 + sims // k)
+    return want
+
+
+def bench_phases(dev, rows):
+    """Phase 27: the bench (``alphazero_gomoku_tpu_torch/bench.py``) on the
+    card at its configs' shapes and full width, 15x15 with the 6x128 net
+    (config #2: 2x64), each cut to a few moves (``BENCH_RUNS``) and
+    ``BENCH_REPEATS`` repeats after its warm-up call, no quiesce wait; then
+    config #1 (``bench_pure_mcts``, host only) and config #5
+    (``bench_training_iteration``, ``int8t``) cut.  Each result's JSON line
+    is printed; its moves are batch x moves (no game ends in 8 moves), its
+    ``mfu_pct`` within (0, 100), its ``detail.device`` names the card, and
+    each config launches the kernels of its path (``bench_launches``) and
+    no other."""
+    name = torch.cuda.get_device_name(0)
+
+    def check_device(r):
+        if not r["detail"]["device"].startswith(name):
+            raise AssertionError(f"device {r['detail']['device']!r} does "
+                                 f"not name {name!r}")
+
+    for label, kw in BENCH_RUNS:
+        kw = {**BENCH_WIDTH, **kw}
+        with Phase(f"27 bench {label}: run_bench({kw}), "
+                   f"{BENCH_REPEATS} repeats"):
+            reset_launch_counts()
+            r = bench.run_bench(**kw, repeats=BENCH_REPEATS,
+                                quiesce_max_wait=0, device=dev)
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            log(json.dumps(r))
+            expect_launches(f"bench {label}", launches,
+                            bench_launches(kw, 1 + BENCH_REPEATS))
+            for kernel, n in launches.items():
+                rows[kernel].setdefault("launches_by_path", {})[
+                    f"bench_{label}"] = n
+            d = r["detail"]
+            moves = kw["batch_games"] * kw["measure_moves"]
+            if d["moves"] != moves or len(d["runs_moves_per_sec"]) !=                     BENCH_REPEATS or r["value"] != max(d["runs_moves_per_sec"]):
+                raise AssertionError(f"bench {label}: {d['moves']} moves, "
+                                     f"expected {moves}; runs "
+                                     f"{d['runs_moves_per_sec']}")
+            if not 0 < d["mfu_pct"] < 100:
+                raise AssertionError(f"bench {label}: mfu_pct "
+                                     f"{d['mfu_pct']}")
+            check_device(r)
+
+    with Phase(f"27 bench 1_pure_mcts: bench_pure_mcts({BENCH_PURE}), "
+               f"host only"):
+        reset_launch_counts()
+        r = bench.bench_pure_mcts(**BENCH_PURE)
+        log(json.dumps(r))
+        expect_launches("bench 1_pure_mcts", launch_counts(), {})
+        if r["detail"]["games"] < 1 or not r["value"] > 0:
+            raise AssertionError(f"bench 1_pure_mcts: {r}")
+
+    with Phase(f"27 bench 5_training_loop: bench_training_iteration("
+               f"{BENCH_TRAIN}), int8t, 6x128, two iterations"):
+        reset_launch_counts()
+        r = bench.bench_training_iteration(**BENCH_TRAIN, device=dev)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        log(json.dumps(r))
+        expect_launches("bench 5_training_loop", launches, {},
+                        some=("select_walk", "backup_paths", "int8_tower"))
+        for kernel, n in launches.items():
+            rows[kernel].setdefault("launches_by_path", {})[
+                "bench_5_training_loop"] = n
+        d = r["detail"]
+        if not (d["selfplay_moves"] > 0 and d["buffer_size"] > 0
+                and r["value"] > 0):
+            raise AssertionError(f"bench 5_training_loop: {r}")
+        check_device(r)
+
+
+def run_tool(main, argv, dev):
+    """A tool's ``main(argv)`` on ``dev``; its printed lines, each logged,
+    and the JSON ones parsed."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        if main(argv, device=dev) != 0:
+            raise AssertionError(f"{main.__module__} {argv} failed")
+    lines = out.getvalue().strip().splitlines()
+    for line in lines:
+        log(f"  {line}")
+    return [json.loads(x) for x in lines if x.startswith("{")]
+
+
+def check_tally(tool: str, r: dict, games: int, played: int):
+    """``played`` is the games asked for, and the mirrored pairs add up."""
+    pairs = r["pairs"]
+    if played != games or pairs["n"] != games // 2 or \
+            pairs["win_both"] + pairs["loss_both"] + pairs["split"] != \
+            pairs["n"]:
+        raise AssertionError(f"{tool}: played {played} of {games}, pairs "
+                             f"{pairs}")
+
+
+def tool_phases(dev, rows, smi):
+    """Phase 28: each arena tool of ``alphazero_gomoku_tpu_torch/tools/``
+    through its ``main`` on the card (``device``), on the shipped
+    checkpoints (``checkpoints/``), ``TOOL_GAMES`` games (2 for the three
+    search A/Bs) of ``TOOL_SIMS`` simulations: ``int8_ab`` and
+    ``compare_snapshots`` on ``best_gomoku.ckpt``, ``cross_net_arena``
+    (Gumbel) of ``distill_4x96.ckpt`` against it, ``gumbel_ab``,
+    ``reuse_ab``, ``kleaf_ab``; ``harvest_run`` over three 6x128 snapshots
+    written in the phase; ``strength_probe``, one game capped at 6 plies.
+    Each plays the games asked for, its pairs add up, and it launches the
+    kernels of its searches."""
+    best = os.path.join(CHECKPOINTS, "best_gomoku.ckpt")
+    student = os.path.join(CHECKPOINTS, "distill_4x96.ckpt")
+    games, sims = str(TOOL_GAMES), str(TOOL_SIMS)
+    puct = ("select_walk", "backup_paths")
+    gumbel = ("gumbel_select_walk", "backup_paths")
+    runs = (
+        ("int8_ab", int8_ab.main, [best, "--games", games, "--sims", sims],
+         TOOL_GAMES, "games", puct + ("int8_tower",)),
+        ("compare_snapshots", compare_snapshots.main,
+         [best, best, "--games", games, "--sims", sims], TOOL_GAMES,
+         "played", puct),
+        ("cross_net_arena", cross_net_arena.main,
+         [student, best, "--games", games, "--sims", sims, "--search",
+          "gumbel"], TOOL_GAMES, "played", gumbel),
+        ("gumbel_ab", gumbel_ab.main,
+         [best, "--games", "2", "--gumbel-sims", sims, "--puct-sims",
+          str(2 * TOOL_SIMS), "--round-parallel"], 2, "games",
+         puct + gumbel),
+        ("reuse_ab", reuse_ab.main, [best, "--games", "2", "--sims", sims],
+         2, "games", puct),
+        ("kleaf_ab", kleaf_ab.main,
+         ["--model", best, "--games", "2", "--sims", sims, "--k", "4"], 2,
+         "games", puct + ("backup_paths_vl", "backup_paths_finalize")),
+    )
+    for tool, main, argv, n, key, some in runs:
+        with Phase(f"28 {tool} {' '.join(argv)}"):
+            reset_launch_counts()
+            [r] = run_tool(main, argv, dev)
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            expect_launches(tool, launches, {}, some=some)
+            for kernel, c in launches.items():
+                rows[kernel].setdefault("launches_by_path", {})[
+                    f"tool_{tool}"] = c
+            check_tally(tool, r, n, r[key])
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with Phase(f"28 harvest_run over 3 snapshots (best_gomoku.ckpt "
+                   f"saved thrice), 2 games of {sims} sims a match, "
+                   f"baseline best_gomoku.ckpt"):
+            model = AZModel.from_checkpoint(best, device=dev)
+            for it in (10, 20, 30):
+                model.save(os.path.join(tmp, f"snapshot_iter{it}_x.ckpt"))
+            reset_launch_counts()
+            lines = run_tool(harvest_run.main,
+                             [tmp, "--games", "2", "--sims", sims,
+                              "--every", "10", "--baseline", best], dev)
+            launches = launch_counts()
+            expect_launches("harvest_run", launches, {}, some=puct)
+            for kernel, c in launches.items():
+                rows[kernel].setdefault("launches_by_path", {})[
+                    "tool_harvest_run"] = c
+            matches, last = lines[:-1], lines[-1]
+            if len(matches) != 3 or not last["path"].startswith(tmp):
+                raise AssertionError(f"harvest_run: {lines}")
+            for r in matches[:2] + [matches[2]["vs_baseline"]]:
+                check_tally("harvest_run", r, 2, 2 * r["pairs"]["n"])
+
+        with Phase(f"28 strength_probe: best_gomoku.ckpt at {sims} sims "
+                   f"against player_mcts, 1 game capped at 6 plies"):
+            reset_launch_counts()
+            [r] = run_tool(strength_probe.main,
+                           ["--model", best, "--sims", sims, "--games", "1",
+                            "--max-moves", "6"], dev)
+            launches = launch_counts()
+            expect_launches("strength_probe", launches, {}, some=puct)
+            for kernel, c in launches.items():
+                rows[kernel].setdefault("launches_by_path", {})[
+                    "tool_strength_probe"] = c
+            if r["az_wins"] + r["draws"] + r["mcts_wins"] != 1:
+                raise AssertionError(f"strength_probe: {r}")
+    log(f"tools on {smi}")
 
 
 def reset_launch_counts():

@@ -2,8 +2,9 @@
 
 The card's machine has no ``jax``, ``flax`` or ``msgpack``, so the port's
 modules, ``chip_smoke.py`` and ``profile_search.py`` must import none of
-them, and nothing of ``alphazero_gomoku_tpu`` (even a module there without
-JAX in it).  The kernel wrappers take the plain version only for CPU tensors, and have no
+them, nothing of ``alphazero_gomoku_tpu`` (even a module there without
+JAX in it), and nothing of the repo's root ``bench.py`` and ``tools/``
+(they import the JAX package).  The kernel wrappers take the plain version only for CPU tensors, and have no
 ``try`` that could turn a failed launch into one.
 """
 
@@ -19,7 +20,7 @@ import alphazero_gomoku_tpu_torch
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "alphazero_gomoku_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack",
-             "alphazero_gomoku_tpu")
+             "alphazero_gomoku_tpu", "bench", "tools")
 
 
 def _port_files():
@@ -51,7 +52,11 @@ def test_every_port_module_imports():
         alphazero_gomoku_tpu_torch.__path__, "alphazero_gomoku_tpu_torch.")]
     for module in ("ops.tree_kernels", "ops.fused_net", "ops.int8_net",
                    "ops.int8_tower", "tools.matmul_rate",
-                   "repro.width1_slice_write"):
+                   "repro.width1_slice_write", "bench", "tools.ab_arena",
+                   "tools.compare_snapshots", "tools.int8_ab",
+                   "tools.cross_net_arena", "tools.gumbel_ab",
+                   "tools.reuse_ab", "tools.kleaf_ab", "tools.harvest_run",
+                   "tools.strength_probe"):
         assert f"alphazero_gomoku_tpu_torch.{module}" in names
     for name in names:
         importlib.import_module(name)
@@ -65,3 +70,13 @@ def test_kernel_wrappers_have_no_fallback():
                  "tools/matmul_rate.py", "repro/width1_slice_write.py"):
         tree = ast.parse((PORT / name).read_text())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), name
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_root_script_loaded_by_path(path):
+    """The root ``bench.py`` and ``tools/`` are not packages: a port file
+    could reach them only by path, which it must not."""
+    text = path.read_text()
+    for needle in ("spec_from_file_location", "runpy", "SourceFileLoader"):
+        assert needle not in text, f"{path.name} uses {needle}"
