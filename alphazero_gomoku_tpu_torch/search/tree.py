@@ -30,6 +30,8 @@ from typing import Any, Callable, Optional, Tuple
 
 import torch
 
+from alphazero_gomoku_tpu_torch.ops.tree_kernels import KERNELS, TreeOps
+
 EvalFn = Callable[[Any, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 # eval_fn(net, obs [B, H, W, C]) -> (policy_probs [B, A], value [B] or [B, 1])
 
@@ -220,8 +222,10 @@ def root_signed_priors(env, cfg: MCTSConfig, eval_fn: EvalFn, net_params,
 def run_mcts_with_q(env, cfg: MCTSConfig, eval_fn: EvalFn, net_params,
                     root_states, move_numbers: torch.Tensor,
                     generator: Optional[torch.Generator] = None,
-                    noise: Optional[torch.Tensor] = None):
-    """Batched search: ``(pi [B, A], root_q [B])``.
+                    noise: Optional[torch.Tensor] = None,
+                    ops: TreeOps = KERNELS):
+    """Batched search: ``(pi [B, A], root_q [B])``; ``ops`` picks the tree
+    functions (the kernel wrappers, or ``tree_kernels.PLAIN``).
 
     ``cfg.search == "gumbel"`` runs Gumbel sequential halving
     (``search/gumbel.py``), whose ``pi`` is the improved-policy target; it
@@ -236,8 +240,10 @@ def run_mcts_with_q(env, cfg: MCTSConfig, eval_fn: EvalFn, net_params,
     if cfg.search == "gumbel":
         from alphazero_gomoku_tpu_torch.search.gumbel import run_gumbel_mcts
         pi, root_q, _ = run_gumbel_mcts(env, cfg, eval_fn, net_params,
-                                        root_states, generator)
+                                        root_states, generator,
+                                        ops=ops)
         return pi, root_q
     from alphazero_gomoku_tpu_torch.search.tree_packed import run_mcts_packed
     return run_mcts_packed(env, cfg, eval_fn, net_params, root_states,
-                           move_numbers, generator, noise=noise)
+                           move_numbers, generator, noise=noise,
+                           ops=ops)

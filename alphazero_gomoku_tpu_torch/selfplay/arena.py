@@ -35,6 +35,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from alphazero_gomoku_tpu_torch.device import resolve_device
+from alphazero_gomoku_tpu_torch.ops.tree_kernels import KERNELS, TreeOps
 from alphazero_gomoku_tpu_torch.search.tree import EvalFn, MCTSConfig
 from alphazero_gomoku_tpu_torch.search.tree_packed import (
     init_packed_carry,
@@ -54,13 +55,16 @@ class Side(NamedTuple):
     re-rooted by ``packed_advance_root`` at every ply, its own and the
     opponent's).  ``play_winner`` plays a Gumbel search's sequential-halving
     winner; otherwise the side plays its policy's argmax (for Gumbel, the
-    improved policy's, as the arena of the training loop does).
+    improved policy's, as the arena of the training loop does).  ``ops``
+    are its searches' tree functions: the kernel wrappers, or
+    ``tree_kernels.PLAIN``.
     """
 
     cfg: MCTSConfig
     eval_fn: EvalFn
     bundle: Any
     play_winner: bool = False
+    ops: TreeOps = KERNELS
 
 
 def centre_openings(env, n_games: int, generator: torch.Generator,
@@ -106,11 +110,11 @@ def sides_half(env, side_p1: Side, side_p2: Side, n_games: int, seed: int,
         if cfg.search == "gumbel":
             pi, _, winner, carry = run_gumbel_packed_with_tree(
                 env, cfg, side.eval_fn, side.bundle, states, gen,
-                uniforms=uniforms, carry=carry)
+                uniforms=uniforms, ops=side.ops, carry=carry)
         else:
             pi, _, carry = run_mcts_packed_with_tree(
                 env, cfg, side.eval_fn, side.bundle, states, zeros, gen,
-                carry=carry)
+                ops=side.ops, carry=carry)
         if carries[i] is not None:
             carries[i] = carry
         return winner if side.play_winner else torch.argmax(pi, dim=-1)

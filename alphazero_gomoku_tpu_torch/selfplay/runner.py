@@ -76,6 +76,7 @@ import torch
 from alphazero_gomoku_tpu_torch.device import resolve_device
 from alphazero_gomoku_tpu_torch.games.gomoku import where_state
 from alphazero_gomoku_tpu_torch.ops.symmetry import expand_symmetries_batch_np
+from alphazero_gomoku_tpu_torch.ops.tree_kernels import KERNELS, TreeOps
 from alphazero_gomoku_tpu_torch.search.gumbel import run_gumbel_mcts
 from alphazero_gomoku_tpu_torch.search.tree import (
     EvalFn,
@@ -205,12 +206,14 @@ def sample_actions(pi: torch.Tensor, temp: torch.Tensor, legal: torch.Tensor,
 
 
 def play_games(env, cfg: SelfPlayConfig, eval_fn: EvalFn, net_params,
-               generator: torch.Generator, device=None) -> Trajectories:
+               generator: torch.Generator, device=None,
+               ops: TreeOps = KERNELS) -> Trajectories:
     """Play ``cfg.batch_games`` lockstep games until all are done or
     ``max_moves`` moves are played.
 
     ``generator`` (on ``device``) gives every random draw, in the order the
-    module's docstring lists.
+    module's docstring lists.  ``ops`` picks the searches' tree functions:
+    the kernel wrappers, or ``tree_kernels.PLAIN``.
     """
     dev = resolve_device(device)
     batch = cfg.batch_games
@@ -253,10 +256,11 @@ def play_games(env, cfg: SelfPlayConfig, eval_fn: EvalFn, net_params,
             if reuse:
                 pi, root_q, winner, tree = run_gumbel_packed_with_tree(
                     env, mcfg, eval_fn, net_params, states, generator,
-                    carry=tree)
+                    carry=tree, ops=ops)
             else:
                 pi, root_q, winner = run_gumbel_mcts(
-                    env, mcfg, eval_fn, net_params, states, generator)
+                    env, mcfg, eval_fn, net_params, states, generator,
+                    ops=ops)
             # the halving winner is the move: no temperature sampling
             actions = torch.where(active, winner, 0)
         else:
@@ -265,10 +269,11 @@ def play_games(env, cfg: SelfPlayConfig, eval_fn: EvalFn, net_params,
             if reuse:
                 pi, root_q, tree = run_mcts_packed_with_tree(
                     env, mcfg, eval_fn, net_params, states, move_nums,
-                    generator, carry=tree)
+                    generator, carry=tree, ops=ops)
             else:
                 pi, root_q = run_mcts_with_q(env, mcfg, eval_fn, net_params,
-                                             states, move_nums, generator)
+                                             states, move_nums, generator,
+                                             ops=ops)
             temp = torch.clamp(1.0 - torch.tensor(t, dtype=torch.float32)
                                / cfg.temp_threshold, min=0.0)
             # done games have an all-zero pi; give them a harmless action 0

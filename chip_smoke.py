@@ -79,7 +79,16 @@ weights made from ``--seed`` (their BN stats fitted to random boards,
     the shipped checkpoints (``checkpoints/``): ``int8_ab``,
     ``compare_snapshots``, ``cross_net_arena``, ``gumbel_ab``, ``reuse_ab``,
     ``kleaf_ab``, ``harvest_run`` and ``strength_probe``, each with the
-    games asked for, its pairs adding up, and its searches' kernels.
+    games asked for, its pairs adding up, and its searches' kernels;
+  - the probes and microbenchmarks (``probe_tool_phases``, phase 29)
+    through their ``main``, cut small, on ``checkpoints/`` and on the
+    replay buffer phase 22 wrote: ``tactics_probe`` (both games),
+    ``distill_net`` (a 4x96 student), ``policy_entropy_probe``,
+    ``int8_calib_sensitivity``, ``tt_rate_probe``,
+    ``tree_kernel_microbench``, ``search_cost_split``, ``hbm_budget``,
+    ``net_microbench``, ``int8_probe`` at batch 256, ``device_parity
+    --quick``, ``gumbel_determinism_probe`` and ``gumbel_flip_probe``, each
+    with its lines checked and its path's kernels.
 
 ``width1_slice_write`` is held (exactly) on the repro's shape and on rows
 whose byte count is not a multiple of 16, with C at both edges, and timed
@@ -126,6 +135,7 @@ import io
 import json
 import math
 import os
+import shutil
 import socket
 import statistics
 import subprocess
@@ -208,14 +218,33 @@ from alphazero_gomoku_tpu_torch.selfplay.buffer import (
 from alphazero_gomoku_tpu_torch.tools import (
     compare_snapshots,
     cross_net_arena,
+    device_parity,
+    distill_net,
     gumbel_ab,
+    gumbel_determinism_probe,
+    gumbel_flip_probe,
     harvest_run,
+    hbm_budget,
     int8_ab,
+    int8_calib_sensitivity,
+    int8_probe,
     kleaf_ab,
+    net_microbench,
+    policy_entropy_probe,
     reuse_ab,
+    search_cost_split,
     strength_probe,
+    tactics_probe,
+    tree_kernel_microbench,
+    tt_rate_probe,
 )
+from alphazero_gomoku_tpu_torch.tools.tactics_suites import suite_for
 from alphazero_gomoku_tpu_torch.tools import latency_floor as lf
+from alphazero_gomoku_tpu_torch.tools.card_timing import (
+    card_label as nvidia_smi,
+    events_ms as cuda_ms,
+    graph_ms,
+)
 from alphazero_gomoku_tpu_torch.tools import matmul_rate as mr
 
 BOARD = 15
@@ -333,6 +362,16 @@ BENCH_PURE = dict(min_seconds=2, min_games=1, max_moves_per_game=4)
 BENCH_TRAIN = dict(games=16, n_simulations=16, eval_games=2)
 # the tools (tool_phases, phase 28): games and simulations a tool plays
 TOOL_GAMES, TOOL_SIMS = 4, 8
+# the probes and microbenchmarks (probe_tool_phases, phase 29), cut: the
+# tactics probe's simulations; distillation's student and batch; the
+# microbenchmarks' batch, chain depths, timed launches and simulations; the
+# flip probe's positions (a batch at each of its plies), search and games;
+# the determinism probe's repeats
+PROBE_SIMS = 16
+DISTILL = dict(blocks=4, channels=96, batch=256, holdout=1024)
+MICRO_BATCH, MICRO_DEPTHS, MICRO_ITERS, MICRO_SIMS = 256, (4, 24), 50, 64
+FLIP_BATCH, FLIP_PLIES, FLIP_SIMS, FLIP_M, FLIP_GAMES = 128, (6, 16), 16, 4, 4
+DETERMINISM_REPEATS = 3
 CHECKPOINTS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "checkpoints")
 
@@ -401,42 +440,6 @@ class Phase:
         if exc_type is None:
             torch.cuda.synchronize()
         log(f"== {self.name}: {time.perf_counter() - self.t0:.3f} s")
-
-
-def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
-    """Mean milliseconds per call of ``fn()`` by CUDA events around a loop of
-    eager calls: the host's launch cost counts where it exceeds the work."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def graph_ms(fn, reps: int) -> float:
-    """Device milliseconds per call of ``fn()``: ``reps`` calls captured in
-    one CUDA graph and replayed, so the host's launch cost is left out."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def latency_floor():
@@ -564,14 +567,6 @@ def timing_summary(row) -> str:
             f"replay; eager wrapper call {row['eager_ms']:.4f} ms), plain "
             f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms "
             f"({row['bound_by']}), floor {row['floor_ms']:.4f} ms")
-
-
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True,
-        timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def phase_gen(seed: int, tag: int, dev) -> torch.Generator:
@@ -893,13 +888,16 @@ def main() -> int:
     extension_phases(args, env, net_cfg, weights, net, dev, rows, smi,
                      int8_bundle, int8_rate)
     probe_phases(args, net_cfg, dev, rows, smi)
-    training_phases(args, env, net_cfg, dev, rows, smi)
-    pente_phases(args, dev, rows, smi)
-    continuous_phases(args, env, net_cfg, dev, rows, smi, int8_bundle)
-    player_phases(args, net_cfg, weights, dev, rows, smi)
-    parallel_phases(args, env, net_cfg, dev, rows, smi, int8_bundle)
-    bench_phases(dev, rows)
-    tool_phases(dev, rows, smi)
+    with tempfile.TemporaryDirectory() as kept:
+        buffer_path = training_phases(args, env, net_cfg, dev, rows, smi,
+                                      kept)
+        pente_phases(args, dev, rows, smi)
+        continuous_phases(args, env, net_cfg, dev, rows, smi, int8_bundle)
+        player_phases(args, net_cfg, weights, dev, rows, smi)
+        parallel_phases(args, env, net_cfg, dev, rows, smi, int8_bundle)
+        bench_phases(dev, rows)
+        tool_phases(dev, rows, smi)
+        probe_tool_phases(dev, rows, smi, buffer_path)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi())
@@ -1108,6 +1106,157 @@ def tool_phases(dev, rows, smi):
             if r["az_wins"] + r["draws"] + r["mcts_wins"] != 1:
                 raise AssertionError(f"strength_probe: {r}")
     log(f"tools on {smi}")
+
+
+def probe_tool_phases(dev, rows, smi, buffer_path: str):
+    """Phase 29: the probes and microbenchmarks of
+    ``alphazero_gomoku_tpu_torch/tools/`` through their ``main`` on the
+    card, cut small, on the shipped checkpoints (``checkpoints/``) and on
+    the replay buffer phase 22's training iteration wrote:
+
+      - ``tactics_probe``, both suites (``best_gomoku.ckpt``,
+        ``best_pente.ckpt`` with capture planes) at ``PROBE_SIMS``
+        simulations: a PUCT walk and a backup a simulation a position;
+      - ``distill_net``: a 4x96 student, one epoch on the buffer (no
+        kernel), its checkpoint read back; ``policy_entropy_probe`` of
+        ``best_gomoku.ckpt`` against it, and ``int8_calib_sensitivity`` of
+        ``best_gomoku.ckpt`` on random-play and buffer calibration sets
+        (K5 once a set); ``tt_rate_probe`` (float32 at batch 1, no kernel);
+      - the microbenchmarks at batch ``MICRO_BATCH``:
+        ``tree_kernel_microbench`` at one depth pair (K1, K2),
+        ``search_cost_split`` and ``hbm_budget`` (PUCT@``MICRO_SIMS`` on
+        K5), ``net_microbench`` (every inference mode: K4, K5) and
+        ``int8_probe`` (K5, K4);
+      - ``device_parity --quick`` (K1, K2, K5 against their plain
+        versions), ``gumbel_determinism_probe`` (``DETERMINISM_REPEATS``
+        kernel runs: K3, K2, K5) and ``gumbel_flip_probe`` on ``FLIP_BATCH``
+        positions at each of ``FLIP_PLIES`` and ``FLIP_GAMES`` games (K3,
+        K2, K4).
+
+    Each tool's lines are printed and checked, and each launches the
+    kernels of its path and no other: the counts the data fixes are held
+    exactly, the others must be at least one."""
+    best = os.path.join(CHECKPOINTS, "best_gomoku.ckpt")
+    pente = os.path.join(CHECKPOINTS, "best_pente.ckpt")
+    puct = ("select_walk", "backup_paths")
+
+    def run(tool, main, argv, want=None, some=()):
+        with Phase(f"29 {tool} {' '.join(argv)}"):
+            reset_launch_counts()
+            lines = run_tool(main, argv, dev)
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            expect_launches(tool, launches, want or {}, some=some)
+            for kernel, c in launches.items():
+                rows[kernel].setdefault("launches_by_path", {})[
+                    f"tool_{tool}"] = c
+        return lines
+
+    for game, ckpt in (("gomoku", best), ("pente", pente)):
+        n = len(suite_for(game))
+        lines = run(f"tactics_probe_{game}", tactics_probe.main,
+                    ["--model", ckpt, "--sims", str(PROBE_SIMS), "--game",
+                     game],
+                    {k: n * PROBE_SIMS for k in puct})
+        if lines[-1]["total"] != n or len(lines) != n + 1:
+            raise AssertionError(f"tactics_probe {game}: {lines[-1]}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        student = os.path.join(tmp, "student.ckpt")
+        lines = run("distill_net", distill_net.main,
+                    [buffer_path, "--epochs", "1", "--out", student]
+                    + [f"--{k}={v}" for k, v in DISTILL.items()])
+        if not (len(lines) == 1 and math.isfinite(lines[0]["train_loss"])):
+            raise AssertionError(f"distill_net: {lines}")
+        model = AZModel.from_checkpoint(student, device=dev)
+        if (model.cfg.n_res_blocks, model.cfg.channels) != (
+                DISTILL["blocks"], DISTILL["channels"]):
+            raise AssertionError(f"distill_net saved {model.cfg}")
+
+        lines = run("policy_entropy_probe", policy_entropy_probe.main,
+                    [best, student, "--buffer", buffer_path])
+        if len(lines) != 3 or not all(
+                0 < r["mean_entropy_nats"] < math.log(225) + 1e-6
+                for r in lines[:2]):
+            raise AssertionError(f"policy_entropy_probe: {lines}")
+
+    lines = run("int8_calib_sensitivity", int8_calib_sensitivity.main,
+                [best, "--buffer", buffer_path], {"int8_tower": 3})
+    if [r["route"] for r in lines] != ["int8", "int8t"] * 3 or any(
+            a[k] != b[k] for a, b in zip(lines[::2], lines[1::2])
+            for k in ("top1_agree", "value_mae")):
+        raise AssertionError(f"int8_calib_sensitivity: the int8 tower's "
+                             f"lines differ from torch._int_mm's: {lines}")
+
+    [r] = run("tt_rate_probe", tt_rate_probe.main,
+              ["--ckpt", best, "--sims", "64", "--moves", "4"])
+    if not (r["expansions"] > 0 and 0 <= r["tt_rate"] <= 1):
+        raise AssertionError(f"tt_rate_probe: {r}")
+
+    b, sims = str(MICRO_BATCH), str(MICRO_SIMS)
+    timed = 2 * (1 + MICRO_ITERS)          # two depths: a warm-up call each
+    lines = run("tree_kernel_microbench", tree_kernel_microbench.main,
+                ["--batches", b, "--depths", *map(str, MICRO_DEPTHS),
+                 "--iters", str(MICRO_ITERS)],
+                {k: timed for k in puct})
+    fit = lines[-1]["fit"]
+    if not (fit["select_hop_ms"] > 0 and fit["backup_hop_ms"] > 0):
+        raise AssertionError(f"tree_kernel_microbench: {fit}")
+
+    moves = 2
+    # a warm-up and a timed call, with the real net and with the null net
+    [r] = run("search_cost_split", search_cost_split.main,
+              ["--batches", b, "--moves", str(moves), "--sims", sims],
+              {"select_walk": 4 * moves * MICRO_SIMS,
+               "backup_paths": 4 * moves * MICRO_SIMS,
+               "int8_tower": 2 * moves * (1 + MICRO_SIMS)})
+    if not 0 < r["nn_share"] < 1:
+        raise AssertionError(f"search_cost_split: {r}")
+
+    [r] = run("hbm_budget", hbm_budget.main,
+              [b, sims, "int8t", "--moves", str(moves)],
+              {"select_walk": moves * MICRO_SIMS,
+               "backup_paths": moves * MICRO_SIMS,
+               "int8_tower": moves * (1 + MICRO_SIMS)})
+    if not 0 < r["measured_peak_mb"] <= 2 * r["reckoned_peak_mb"] + \
+            r["resident_before_mb"]:
+        raise AssertionError(f"hbm_budget: {r}")
+
+    calls = 3 + 20                          # events_ms's warm-up and reps
+    lines = run("net_microbench", net_microbench.main,
+                ["--batches", b, "--iters", "20"],
+                {"fused_tower": calls, "int8_tower": calls})
+    if len(lines) != 5 or not all(r["ms_per_eval"] > 0 for r in lines):
+        raise AssertionError(f"net_microbench: {lines}")
+
+    lines = run("int8_probe", int8_probe.main,
+                ["--batch", b, "--reps", "10"],
+                {"fused_tower": 13, "int8_tower": 13})
+    if len(lines) != 6 or not all(r["us_per_conv"] > 0 for r in lines[:5]):
+        raise AssertionError(f"int8_probe: {lines}")
+
+    lines = run("device_parity", device_parity.main, ["--quick"],
+                some=puct + ("int8_tower",))
+    if lines[-1]["all_ok"] is not True:
+        raise AssertionError(f"device_parity: {lines}")
+
+    [r] = run("gumbel_determinism_probe", gumbel_determinism_probe.main,
+              [str(DETERMINISM_REPEATS)],
+              some=("gumbel_select_walk", "backup_paths", "int8_tower"))
+    if not (r["kernels_deterministic"] and r["kernels_equal_plain"]):
+        raise AssertionError(f"gumbel_determinism_probe: {r}")
+
+    lines = run("gumbel_flip_probe", gumbel_flip_probe.main,
+                ["--ckpt", best, "--sims", str(FLIP_SIMS), "--m",
+                 str(FLIP_M), "--batch", str(FLIP_BATCH), "--plies",
+                 *map(str, FLIP_PLIES), "--arena-games", str(FLIP_GAMES)],
+                some=("gumbel_select_walk", "backup_paths", "fused_tower"))
+    fr = lines[-2]["flip_rate_summary"]
+    ar = lines[-1]["cross_backend_arena"]
+    if fr["positions"] < 1:
+        raise AssertionError(f"gumbel_flip_probe: {fr}")
+    check_tally("gumbel_flip_probe", ar, FLIP_GAMES, ar["played"])
+    log(f"probes and microbenchmarks on {smi}")
 
 
 def reset_launch_counts():
@@ -1866,8 +2015,10 @@ def probe_phases(args, net_cfg, dev, rows, smi):
             f"null")
 
 
-def training_phases(args, env, net_cfg, dev, rows, smi):
-    """The training step and the training iteration, 6x128, 15x15.
+def training_phases(args, env, net_cfg, dev, rows, smi, kept):
+    """The training step and the training iteration, 6x128, 15x15; returns
+    the path of a copy, in ``kept``, of the replay buffer the iteration
+    wrote (phase 29's tools read it).
 
     21a: one float32 ``train_step`` (TF32 off) at batch 256 against the same
     step on float64 copies of the params, batch and optimizer state
@@ -2031,6 +2182,8 @@ def training_phases(args, env, net_cfg, dev, rows, smi):
                 raise AssertionError("a reloaded snapshot saved different "
                                      "arrays")
             log(f"{snap}: reloaded and saved again, every array equal")
+        return shutil.copy(os.path.join(tmp, "replay_buffer_latest.npz"),
+                           kept)
 
 
 def pente_obs(env, batch, plies, generator, dev):

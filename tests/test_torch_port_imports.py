@@ -56,7 +56,15 @@ def test_every_port_module_imports():
                    "tools.compare_snapshots", "tools.int8_ab",
                    "tools.cross_net_arena", "tools.gumbel_ab",
                    "tools.reuse_ab", "tools.kleaf_ab", "tools.harvest_run",
-                   "tools.strength_probe"):
+                   "tools.strength_probe", "tools.tactics_suites",
+                   "tools.tactics_probe", "tools.distill_net",
+                   "tools.policy_entropy_probe",
+                   "tools.int8_calib_sensitivity", "tools.tt_rate_probe",
+                   "tools.tree_kernel_microbench", "tools.search_cost_split",
+                   "tools.hbm_budget", "tools.net_microbench",
+                   "tools.int8_probe", "tools.device_parity",
+                   "tools.gumbel_determinism_probe",
+                   "tools.gumbel_flip_probe"):
         assert f"alphazero_gomoku_tpu_torch.{module}" in names
     for name in names:
         importlib.import_module(name)
@@ -76,7 +84,9 @@ def test_kernel_wrappers_have_no_fallback():
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_root_script_loaded_by_path(path):
     """The root ``bench.py`` and ``tools/`` are not packages: a port file
-    could reach them only by path, which it must not."""
+    could reach them only by path (or by putting ``tools/`` on
+    ``sys.path``, as the JAX tactics probe does), which it must not."""
     text = path.read_text()
-    for needle in ("spec_from_file_location", "runpy", "SourceFileLoader"):
+    for needle in ("spec_from_file_location", "runpy", "SourceFileLoader",
+                   "sys.path"):
         assert needle not in text, f"{path.name} uses {needle}"

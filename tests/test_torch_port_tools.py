@@ -48,12 +48,25 @@ from alphazero_gomoku_tpu_torch.tools import (
     ab_arena,
     compare_snapshots,
     cross_net_arena,
+    device_parity,
+    distill_net,
     gumbel_ab,
+    gumbel_determinism_probe,
+    gumbel_flip_probe,
     harvest_run,
+    hbm_budget,
     int8_ab,
+    int8_calib_sensitivity,
+    int8_probe,
     kleaf_ab,
+    net_microbench,
+    policy_entropy_probe,
     reuse_ab,
+    search_cost_split,
     strength_probe,
+    tactics_probe,
+    tree_kernel_microbench,
+    tt_rate_probe,
 )
 
 from torch_port_util import TableEval, one_torch_thread  # noqa: F401
@@ -348,3 +361,22 @@ def test_tools_raise_without_a_card(tmp_path):
                        (strength_probe.main, ["--model", ckpt])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(argv + ["--size", str(SIZE)])
+    # the probes and microbenchmarks: each resolves the card before it
+    # reads a file
+    missing = str(tmp_path / "missing")
+    for main, argv in ((tactics_probe.main, ["--model", ckpt]),
+                       (distill_net.main, [missing, "--out", missing]),
+                       (policy_entropy_probe.main,
+                        [ckpt, ckpt, "--buffer", missing]),
+                       (int8_calib_sensitivity.main, [ckpt]),
+                       (tt_rate_probe.main, ["--ckpt", ckpt]),
+                       (tree_kernel_microbench.main, []),
+                       (search_cost_split.main, []),
+                       (hbm_budget.main, ["8", "4", "f32"]),
+                       (net_microbench.main, []),
+                       (int8_probe.main, []),
+                       (device_parity.main, ["--quick"]),
+                       (gumbel_determinism_probe.main, []),
+                       (gumbel_flip_probe.main, ["--ckpt", ckpt])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(argv)
