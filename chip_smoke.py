@@ -88,7 +88,20 @@ weights made from ``--seed`` (their BN stats fitted to random boards,
     ``tree_kernel_microbench``, ``search_cost_split``, ``hbm_budget``,
     ``net_microbench``, ``int8_probe`` at batch 256, ``device_parity
     --quick``, ``gumbel_determinism_probe`` and ``gumbel_flip_probe``, each
-    with its lines checked and its path's kernels.
+    with its lines checked and its path's kernels;
+  - the tree kernels' envelope probes (``envelope_phases``, phase 30, the
+    port of the JAX repo's ``repro/`` bisects, cut), each on the kernels
+    against the plain versions from one seed, bit for bit, its games
+    replayed on the host engine: ``select_walk`` and ``backup_paths``
+    alone at 1024 lanes x 400 simulations; a PUCT@400 move at 1024 lanes on
+    the int8 tower; the ``parent_probe`` rows (zero and parent FPU at caps
+    8 and 56, Gumbel@64 and k-leaf k=4 at cap 8, zero FPU and Gumbel at
+    cap 1), 2 moves each, the rows of ``MUST_CAP`` with capped walks; and
+    games played to their end on 7x7 (some fill the board; 32
+    simulations) and on 15x15 (one ``parent_longrun`` batch, 2x32, 16
+    simulations), with searches on done roots: kernels ``select_walk``,
+    ``backup_paths`` (all three modes), ``gumbel_select_walk`` and
+    ``int8_tower``.
 
 ``width1_slice_write`` is held (exactly) on the repro's shape and on rows
 whose byte count is not a multiple of 16, with C at both edges, and timed
@@ -182,6 +195,12 @@ from alphazero_gomoku_tpu_torch.parallel import (
 )
 from alphazero_gomoku_tpu_torch.parallel.mesh import fold_in
 from alphazero_gomoku_tpu_torch.players import load_player, request_move
+from alphazero_gomoku_tpu_torch.repro import (
+    bisect_batch512,
+    parent_longrun,
+    parent_probe,
+)
+from alphazero_gomoku_tpu_torch.repro import envelope as ev
 from alphazero_gomoku_tpu_torch.repro import width1_slice_write as ws
 from alphazero_gomoku_tpu_torch.search import (
     MCTSConfig,
@@ -372,6 +391,19 @@ DISTILL = dict(blocks=4, channels=96, batch=256, holdout=1024)
 MICRO_BATCH, MICRO_DEPTHS, MICRO_ITERS, MICRO_SIMS = 256, (4, 24), 50, 64
 FLIP_BATCH, FLIP_PLIES, FLIP_SIMS, FLIP_M, FLIP_GAMES = 128, (6, 16), 16, 4, 4
 DETERMINISM_REPEATS = 3
+# the envelope probes (envelope_phases, phase 30), cut: the kernels-only
+# loop (lanes, simulations, slots); self-play at 1024 lanes on the int8 tower
+# (lanes, simulations, moves: one, as the plain int8 tower takes 36 s a
+# move there); the parent probe rows' moves (2: the plain walk takes up to
+# 4 s a move under parent FPU); full games on 15x15 (one parent_longrun
+# batch at a 2x32 net and 16 simulations: at 32 the plain side took 74 s of
+# 91 on an H100, its walks 15 hops deep) and on a board small enough that
+# some games fill it (board, batch, simulations)
+ENV_KERNELS = (1024, 400, 408)
+ENV_SELFPLAY = (1024, 400, 1)
+ENV_PARENT_MOVES = 2
+ENV_LONGRUN = dict(batch=128, sims=16, blocks=2, channels=32)
+ENV_SMALL_BOARD, ENV_SMALL_BATCH, ENV_SMALL_SIMS = 7, 64, 32
 CHECKPOINTS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "checkpoints")
 
@@ -898,6 +930,7 @@ def main() -> int:
         bench_phases(dev, rows)
         tool_phases(dev, rows, smi)
         probe_tool_phases(dev, rows, smi, buffer_path)
+    envelope_phases(dev, rows, smi)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi())
@@ -1257,6 +1290,95 @@ def probe_tool_phases(dev, rows, smi, buffer_path: str):
         raise AssertionError(f"gumbel_flip_probe: {fr}")
     check_tally("gumbel_flip_probe", ar, FLIP_GAMES, ar["played"])
     log(f"probes and microbenchmarks on {smi}")
+
+
+def envelope_phases(dev, rows, smi):
+    """Phase 30: the envelope probes of ``alphazero_gomoku_tpu_torch/repro/``
+    (``envelope.probe_kernels``, ``envelope.probe_selfplay``), cut: each
+    runs the kernels and then the plain versions from one seed and must
+    match bit for bit, replay its games on the host engine without a
+    disagreement, and reach its axis (capped walks; won games, full boards
+    and searches on done roots).  The plain runs launch no kernel, so each
+    sub-phase's counts are its kernels' run."""
+    def run(label, key, what, fn, want=None, some=()):
+        with Phase(f"30{label} {what}"):
+            reset_launch_counts()
+            line = fn()
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            log(json.dumps(line))
+            expect_launches(f"envelope {label}", launches, want or {},
+                            some=some)
+            for kernel, c in launches.items():
+                rows[kernel].setdefault("launches_by_path", {})[
+                    f"envelope_{key}"] = c
+        if not (line["ok"] and line["match"]):
+            raise AssertionError(f"phase 30{label}: {line}")
+        return line
+
+    b, sims, nodes = ENV_KERNELS
+    line = run("a", "kernels1024", f"select_walk and backup_paths alone, "
+               f"{b} lanes x {sims} simulations, {nodes} slots",
+               lambda: bisect_batch512.kernels(b, sims, nodes, device=dev),
+               {"select_walk": sims, "backup_paths": sims})
+    if line["root_visits"] != b * sims:
+        raise AssertionError(f"phase 30a: root visits {line}")
+
+    b, sims, moves = ENV_SELFPLAY
+    line = run("b", "selfplay1024", f"play_games {b} lanes, PUCT@{sims} "
+               f"int8t, 6x128, {moves} moves",
+               lambda: bisect_batch512.selfplay(b, sims, moves, "int8t",
+                                                device=dev),
+               {"select_walk": sims * moves, "backup_paths": sims * moves,
+                "int8_tower": (sims + 1) * moves})
+    log(f"30b peak {line.get('peak_mb')} MiB against the reckoning "
+        f"{line['reckoned_peak_mb']} MiB on {smi}")
+
+    moves = ENV_PARENT_MOVES
+    for kind, cap, _ in parent_probe.CONFIGS + parent_probe.EXTRA:
+        if kind == "gumbel":
+            n = parent_probe.GUMBEL_SIMS * moves
+            want = {"gumbel_select_walk": n, "backup_paths": n}
+        elif kind == "kleaf4":
+            n = parent_probe.SIMS * moves
+            want = {"select_walk": n, "backup_paths_vl": n,
+                    "backup_paths_finalize": n}
+        else:
+            n = parent_probe.SIMS * moves
+            want = {"select_walk": n, "backup_paths": n}
+        line = run("c", f"parent_{kind}_cap{cap}",
+                   f"parent_probe {kind}@cap{cap}, {moves} moves",
+                   lambda: parent_probe.probe(kind, cap, moves, device=dev),
+                   want)
+        log(f"30c {kind}@cap{cap}: {line['capped_walks']} capped walks of "
+            f"{line['walks']}, deepest path {line['deepest_path']}")
+
+    size, batch = ENV_SMALL_BOARD, ENV_SMALL_BATCH
+    env = make_env("gomoku", size)
+    puct = ("select_walk", "backup_paths")
+
+    def small_board():
+        net_cfg, eval_fn, bundle = ev.make_net(
+            "f32", parent_probe.BLOCKS, parent_probe.CHANNELS,
+            parent_probe.NET_SEED, board_size=size, device=dev)
+        cfg = ev.selfplay_config(batch, ENV_SMALL_SIMS, size * size,
+                                 fpu_mode="parent")
+        return ev.probe_selfplay(
+            env, cfg, ev.make_sides("f32", net_cfg, eval_fn), bundle,
+            parent_longrun.SEED_BASE, net_cfg=net_cfg,
+            expect=("won", "full_board", "done_root_plies"),
+            device=dev).line
+
+    run("d", f"full_games_{size}x{size}", f"games to their end, {size}x{size}"
+        f", batch {batch}, parent FPU", small_board, some=puct)
+    line = run("e", "longrun_batch",
+               f"one parent_longrun batch, 15x15, {ENV_LONGRUN}",
+               lambda: parent_longrun.longrun(1, device=dev,
+                                              **ENV_LONGRUN)[0],
+               some=puct)
+    if not (line["won"] > 0 and line["done_root_plies"] > 0):
+        raise AssertionError(f"phase 30e: an axis not reached: {line}")
+    log(f"envelope probes on {smi}")
 
 
 def reset_launch_counts():

@@ -32,6 +32,8 @@ from alphazero_gomoku_tpu_torch.ops import fused_net as fn
 from alphazero_gomoku_tpu_torch.ops import int8_net as q8
 from alphazero_gomoku_tpu_torch.ops import int8_tower as t8
 from alphazero_gomoku_tpu_torch.ops import tree_kernels as tk
+from alphazero_gomoku_tpu_torch.repro import envelope as ev
+from alphazero_gomoku_tpu_torch.repro import parent_probe
 from alphazero_gomoku_tpu_torch.repro import width1_slice_write as ws
 from alphazero_gomoku_tpu_torch.search import MCTSConfig
 from alphazero_gomoku_tpu_torch.search.gumbel import (
@@ -1036,3 +1038,44 @@ def test_backup_paths_at_depth_10002_on_a_real_5000_simulation_tree():
     torch.cuda.synchronize()
     assert torch.equal(kernel, plain)
     assert not torch.equal(kernel, carry.packed)
+
+
+# ----------------------------------------------------------------------
+# the envelope probes (repro/): one case per axis, kernels against plain
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("kind,cap", parent_probe.MUST_CAP)
+def test_capped_walks_in_a_whole_search_kernels_equal_plain(kind, cap):
+    """A search whose walks reach the depth cap (K1, K3, K2 and K2' in
+    modes vl and finalize at the capped branch) equals the plain one."""
+    dev = _card()
+    line = parent_probe.probe(kind, cap, 4, batch=32, device=dev)
+    assert line["ok"] and line["match"] and line["capped_walks"] > 0, line
+
+
+def test_done_roots_and_full_boards_kernels_equal_plain():
+    """Games played to their end on 7x7: searches on done roots and on
+    full boards equal the plain ones, and the host replay agrees."""
+    dev = _card()
+    env = make_env("gomoku", 7)
+    net_cfg, eval_fn, bundle = ev.make_net("f32", 2, 32, 5, board_size=7,
+                                           device=dev)
+    cfg = ev.selfplay_config(32, 32, 49, fpu_mode="parent")
+    line = ev.probe_selfplay(
+        env, cfg, ev.make_sides("f32", net_cfg, eval_fn), bundle, 1000,
+        net_cfg=net_cfg, expect=("won", "full_board", "done_root_plies"),
+        device=dev).line
+    assert line["ok"] and line["match"], line
+
+
+def test_batch_1024_kernels_equal_plain():
+    """1024 lanes: the walk and backup alone on random trees, and a PUCT
+    move on the int8 tower (K5 at 1024 boards)."""
+    dev = _card()
+    line = ev.probe_kernels(1024, 64, 72, device=dev).line
+    assert line["ok"] and line["match"], line
+    env = make_env("gomoku", 15)
+    net_cfg, eval_fn, bundle = ev.make_net("int8t", 2, 32, 0, device=dev)
+    run = ev.probe_selfplay(env, ev.selfplay_config(1024, 16, 1),
+                            ev.make_sides("int8t", net_cfg, eval_fn), bundle,
+                            5, net_cfg=net_cfg, device=dev)
+    assert run.line["ok"] and run.line["match"], run.line

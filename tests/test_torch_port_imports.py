@@ -3,8 +3,8 @@
 The card's machine has no ``jax``, ``flax`` or ``msgpack``, so the port's
 modules, ``chip_smoke.py`` and ``profile_search.py`` must import none of
 them, nothing of ``alphazero_gomoku_tpu`` (even a module there without
-JAX in it), and nothing of the repo's root ``bench.py`` and ``tools/``
-(they import the JAX package).  The kernel wrappers take the plain version only for CPU tensors, and have no
+JAX in it), and nothing of the repo's root ``bench.py``, ``tools/`` and
+``repro/`` (they import the JAX package).  The kernel wrappers take the plain version only for CPU tensors, and have no
 ``try`` that could turn a failed launch into one.
 """
 
@@ -20,7 +20,7 @@ import alphazero_gomoku_tpu_torch
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "alphazero_gomoku_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack",
-             "alphazero_gomoku_tpu", "bench", "tools")
+             "alphazero_gomoku_tpu", "bench", "tools", "repro")
 
 
 def _port_files():
@@ -64,7 +64,9 @@ def test_every_port_module_imports():
                    "tools.hbm_budget", "tools.net_microbench",
                    "tools.int8_probe", "tools.device_parity",
                    "tools.gumbel_determinism_probe",
-                   "tools.gumbel_flip_probe"):
+                   "tools.gumbel_flip_probe", "repro.envelope",
+                   "repro.bisect_batch512", "repro.bisect_lockstep",
+                   "repro.parent_probe", "repro.parent_longrun"):
         assert f"alphazero_gomoku_tpu_torch.{module}" in names
     for name in names:
         importlib.import_module(name)
@@ -83,8 +85,8 @@ def test_kernel_wrappers_have_no_fallback():
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_root_script_loaded_by_path(path):
-    """The root ``bench.py`` and ``tools/`` are not packages: a port file
-    could reach them only by path (or by putting ``tools/`` on
+    """The root ``bench.py``, ``tools/`` and ``repro/`` are not packages: a
+    port file could reach them only by path (or by putting ``tools/`` on
     ``sys.path``, as the JAX tactics probe does), which it must not."""
     text = path.read_text()
     for needle in ("spec_from_file_location", "runpy", "SourceFileLoader",
