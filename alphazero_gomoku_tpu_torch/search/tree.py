@@ -31,6 +31,7 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 
 from alphazero_gomoku_tpu_torch.ops.tree_kernels import KERNELS, TreeOps
+from alphazero_gomoku_tpu_torch.utils.profiling import trace_annotation
 
 EvalFn = Callable[[Any, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 # eval_fn(net, obs [B, H, W, C]) -> (policy_probs [B, A], value [B] or [B, 1])
@@ -195,7 +196,9 @@ def root_signed_priors(env, cfg: MCTSConfig, eval_fn: EvalFn, net_params,
     """
     batch = root_states.done.shape[0]
     a = env.num_actions
-    root_probs, _ = eval_fn(net_params, env.encode(root_states))
+    obs = env.encode(root_states)
+    with trace_annotation("az.net"):
+        root_probs, _ = eval_fn(net_params, obs)
     root_probs = root_probs.reshape(batch, a)
     root_legal = env.legal_mask(root_states).to(root_probs.dtype)
     priors = _masked_priors(root_probs, root_legal)

@@ -39,6 +39,19 @@ each simulation also records its slot's parent and action in the carry's
 sidecar arrays, which :func:`packed_advance_root` follows to re-root the
 tree at the played move between moves.
 
+Spans (``utils.profiling.trace_annotation``: ``record_function`` ranges
+while a profiler records, nothing otherwise): ``az.root`` holds what a search
+does before its first simulation (the carry's copy, the root's evaluation,
+its noise or Gumbel draw and top-k); each simulation step is ``az.walk``
+(step 1), ``az.expand`` (step 2 with the slot's writes), ``az.eval`` (step
+3) and ``az.backup`` (step 4), every line of the step in one of them; a
+Gumbel search's halving between phases is ``az.halve``; every call of the
+eval function is ``az.net``, inside ``az.eval`` or ``az.root``.  A step is a
+walk call: one simulation, a k-leaf leaf (whose ``az.backup`` is the virtual
+loss's; the macro step adds one ``az.eval`` and one ``az.backup`` of the k
+finalize backups), or a round-parallel round of ``m_k`` simulations.
+:func:`packed_advance_root` runs in the move loop's ``az.advance_root``.
+
 The searches are generic over the game's state NamedTuple (``GomokuState``,
 ``PenteState``), as the JAX searches are over its state pytree: every node
 holds every field (Pente's ``captures`` too), and each gather, slot write,
@@ -82,6 +95,7 @@ from alphazero_gomoku_tpu_torch.search.tree import (
     root_signed_priors,
     terminal_leaf_value,
 )
+from alphazero_gomoku_tpu_torch.utils.profiling import trace_annotation
 
 
 class PackedCarry(NamedTuple):
@@ -168,10 +182,26 @@ def _expand(env, states, trees: torch.Tensor, leaf: torch.Tensor,
     return where_state(expanding, child_state, parent_state), expanding
 
 
+def _expand_slot(env, carry: PackedCarry, lanes: torch.Tensor, slot: int,
+                 leaf: torch.Tensor, action: torch.Tensor, parents: bool):
+    """Step 2 of a serial simulation, in ``az.expand``: ``(write_state,
+    expanding)``, the state written at ``slot`` of every lane (and, with
+    ``parents``, the slot's parent and action in the carry's sidecar)."""
+    with trace_annotation("az.expand"):
+        write_state, expanding = _expand(env, carry.states, lanes, leaf,
+                                         action)
+        _write_slot(carry.states, slot, write_state)
+        if parents:
+            _write_parent(carry, slot, leaf, action, expanding)
+    return write_state, expanding
+
+
 def _evaluate(env, cfg: MCTSConfig, eval_fn: EvalFn, net_params, leaves):
     """Step 3: ``(leaf_value [L], signed_priors [L, A])`` of the leaf
     states, in one network call."""
-    probs, values = eval_fn(net_params, env.encode(leaves))
+    obs = env.encode(leaves)
+    with trace_annotation("az.net"):
+        probs, values = eval_fn(net_params, obs)
     lanes = leaves.done.shape[0]
     probs = probs.reshape(lanes, env.num_actions)
     values = values.reshape(lanes)
@@ -180,16 +210,6 @@ def _evaluate(env, cfg: MCTSConfig, eval_fn: EvalFn, net_params, leaves):
                              values).to(torch.float32)
     legal = env.legal_mask(leaves).to(probs.dtype)
     return leaf_value, _signed_priors(probs, legal)
-
-
-def _expand_and_eval(env, cfg: MCTSConfig, eval_fn: EvalFn, net_params,
-                     states, trees: torch.Tensor,
-                     leaf: torch.Tensor, action: torch.Tensor):
-    """Steps 2-3 of a simulation: ``(write_state, expanding, leaf_value,
-    signed_priors)``."""
-    write_state, expanding = _expand(env, states, trees, leaf, action)
-    leaf_value, priors = _evaluate(env, cfg, eval_fn, net_params, write_state)
-    return write_state, expanding, leaf_value, priors
 
 
 def _write_slot(states, slot: int, write_state):
@@ -242,38 +262,42 @@ def run_mcts_packed_with_tree(env, cfg: MCTSConfig, eval_fn: EvalFn,
     if cfg.reuse_budget > 0 and cfg.leaves_per_sim > 1:
         raise ValueError("subtree reuse is not supported with "
                          "leaves_per_sim > 1")
-    carry, root_states, slot_base = _begin(env, cfg, root_states, carry)
-    packed, states = carry.packed, carry.states
-    a = env.num_actions
-    layout = packed_layout(a, cfg.node_capacity)
-    batch = root_states.done.shape[0]
-    dev = root_states.board.device
-    lanes = torch.arange(batch, device=dev)
-    fpu_parent = cfg.fpu_mode == "parent"
+    with trace_annotation("az.root"):
+        carry, root_states, slot_base = _begin(env, cfg, root_states, carry)
+        packed, states = carry.packed, carry.states
+        a = env.num_actions
+        layout = packed_layout(a, cfg.node_capacity)
+        batch = root_states.done.shape[0]
+        dev = root_states.board.device
+        lanes = torch.arange(batch, device=dev)
+        fpu_parent = cfg.fpu_mode == "parent"
 
-    signed = root_signed_priors(env, cfg, eval_fn, net_params, root_states,
-                                move_numbers, generator, noise)
-    # the root's prior row and done flag; N, W and children carry over
-    packed[:, SL_P, :a] = signed
-    packed[:, SL_META, 0] = root_states.done.to(torch.float32)
+        signed = root_signed_priors(env, cfg, eval_fn, net_params,
+                                    root_states, move_numbers, generator,
+                                    noise)
+        # the root's prior row and done flag; N, W and children carry over
+        packed[:, SL_P, :a] = signed
+        packed[:, SL_META, 0] = root_states.done.to(torch.float32)
 
     def walk():
-        return ops.select_walk(packed, layout, cfg.cpuct, cfg.depth_limit,
-                               fpu_parent)
+        with trace_annotation("az.walk"):
+            return ops.select_walk(packed, layout, cfg.cpuct,
+                                   cfg.depth_limit, fpu_parent)
 
     k = cfg.leaves_per_sim
     if k == 1:
         for sim in range(cfg.n_simulations):
             slot = sim + slot_base
             leaf, action, pnodes, pacts, plen = walk()
-            write_state, expanding, leaf_value, priors = _expand_and_eval(
-                env, cfg, eval_fn, net_params, states, lanes, leaf, action)
-            _write_slot(states, slot, write_state)
-            ops.backup_paths(packed, pnodes, pacts, plen, leaf_value,
-                             expanding, slot, layout, priors,
-                             write_state.done)
-            if cfg.reuse_budget > 0:
-                _write_parent(carry, slot, leaf, action, expanding)
+            write_state, expanding = _expand_slot(
+                env, carry, lanes, slot, leaf, action, cfg.reuse_budget > 0)
+            with trace_annotation("az.eval"):
+                leaf_value, priors = _evaluate(env, cfg, eval_fn, net_params,
+                                               write_state)
+            with trace_annotation("az.backup"):
+                ops.backup_paths(packed, pnodes, pacts, plen, leaf_value,
+                                 expanding, slot, layout, priors,
+                                 write_state.done)
     else:
         zeros = torch.zeros(batch, dtype=torch.float32, device=dev)
         for step in range(cfg.n_simulations // k):
@@ -281,29 +305,33 @@ def run_mcts_packed_with_tree(env, cfg: MCTSConfig, eval_fn: EvalFn,
             macro = []
             for j in range(k):
                 leaf, action, pnodes, pacts, plen = walk()
-                write_state, expanding = _expand(env, states, lanes, leaf,
-                                                 action)
-                _write_slot(states, base + j, write_state)
-                legal = env.legal_mask(write_state).to(torch.float32)
-                n_legal = torch.clamp(legal.sum(dim=-1, keepdim=True),
-                                      min=1.0)
-                placeholder = torch.where(legal > 0, legal / n_legal, -1.0)
-                ops.backup_paths(packed, pnodes, pacts, plen, zeros,
-                                 expanding, base + j, layout, placeholder,
-                                 write_state.done, mode="vl")
+                write_state, expanding = _expand_slot(
+                    env, carry, lanes, base + j, leaf, action, False)
+                with trace_annotation("az.backup"):
+                    legal = env.legal_mask(write_state).to(torch.float32)
+                    n_legal = torch.clamp(legal.sum(dim=-1, keepdim=True),
+                                          min=1.0)
+                    placeholder = torch.where(legal > 0, legal / n_legal,
+                                              -1.0)
+                    ops.backup_paths(packed, pnodes, pacts, plen, zeros,
+                                     expanding, base + j, layout,
+                                     placeholder, write_state.done,
+                                     mode="vl")
                 macro.append((pnodes, pacts, plen, expanding, write_state))
-            # the k leaves in one network call, j-major
-            leaves = type(states)(*(torch.cat(field) for field in zip(
-                *(m[4] for m in macro))))
-            leaf_value, priors = _evaluate(env, cfg, eval_fn, net_params,
-                                           leaves)
-            for j, (pnodes, pacts, plen, expanding, write_state) in \
-                    enumerate(macro):
-                rows = slice(j * batch, (j + 1) * batch)
-                ops.backup_paths(packed, pnodes, pacts, plen,
-                                 leaf_value[rows], expanding, base + j,
-                                 layout, priors[rows], write_state.done,
-                                 mode="finalize")
+            with trace_annotation("az.eval"):
+                # the k leaves in one network call, j-major
+                leaves = type(states)(*(torch.cat(field) for field in zip(
+                    *(m[4] for m in macro))))
+                leaf_value, priors = _evaluate(env, cfg, eval_fn, net_params,
+                                               leaves)
+            with trace_annotation("az.backup"):
+                for j, (pnodes, pacts, plen, expanding, write_state) in \
+                        enumerate(macro):
+                    rows = slice(j * batch, (j + 1) * batch)
+                    ops.backup_paths(packed, pnodes, pacts, plen,
+                                     leaf_value[rows], expanding, base + j,
+                                     layout, priors[rows], write_state.done,
+                                     mode="finalize")
 
     # visit-count policy and root value from node 0's tile
     counts = packed[:, SL_N, :a]
@@ -363,35 +391,41 @@ def run_gumbel_packed_with_tree(env, cfg: MCTSConfig, eval_fn: EvalFn,
     :func:`run_mcts_packed_with_tree`; the root's priors, done flag and
     value are evaluated anew each move.
     """
-    carry, root_states, slot = _begin(env, cfg, root_states, carry)
-    packed, states = carry.packed, carry.states
-    a = env.num_actions
-    layout = packed_layout(a, cfg.node_capacity)
-    batch = root_states.done.shape[0]
-    dev = root_states.board.device
-    lanes = torch.arange(batch, device=dev)
-    m, phases = halving_schedule(cfg.n_simulations, cfg.gumbel_max_considered)
+    with trace_annotation("az.root"):
+        carry, root_states, slot = _begin(env, cfg, root_states, carry)
+        packed, states = carry.packed, carry.states
+        a = env.num_actions
+        layout = packed_layout(a, cfg.node_capacity)
+        batch = root_states.done.shape[0]
+        dev = root_states.board.device
+        lanes = torch.arange(batch, device=dev)
+        m, phases = halving_schedule(cfg.n_simulations,
+                                     cfg.gumbel_max_considered)
 
-    # root evaluation: priors, value, Gumbel-perturbed logits
-    probs, v0 = eval_fn(net_params, env.encode(root_states))
-    probs = probs.reshape(batch, a)
-    v0 = v0.reshape(batch).to(torch.float32)
-    legal = env.legal_mask(root_states)
-    priors = _masked_priors(probs, legal.to(probs.dtype))
-    signed = torch.where(legal, priors, -1.0)
+        # root evaluation: priors, value, Gumbel-perturbed logits
+        obs = env.encode(root_states)
+        with trace_annotation("az.net"):
+            probs, v0 = eval_fn(net_params, obs)
+        probs = probs.reshape(batch, a)
+        v0 = v0.reshape(batch).to(torch.float32)
+        legal = env.legal_mask(root_states)
+        priors = _masked_priors(probs, legal.to(probs.dtype))
+        signed = torch.where(legal, priors, -1.0)
 
-    # the root's prior row, done flag and value; N, W and children carry over
-    packed[:, SL_P, :a] = signed
-    packed[:, SL_META, 0] = root_states.done.to(torch.float32)
-    packed[:, SL_META, 1] = v0
+        # the root's prior row, done flag and value; N, W and children
+        # carry over
+        packed[:, SL_P, :a] = signed
+        packed[:, SL_META, 0] = root_states.done.to(torch.float32)
+        packed[:, SL_META, 1] = v0
 
-    logits = torch.where(legal, torch.log(torch.clamp(priors, min=1e-30)),
-                         NEG_INF)
-    if uniforms is None:
-        uniforms = torch.clamp(torch.rand((batch, a), generator=generator,
-                                          device=dev), min=1e-12)
-    g = torch.where(legal, -torch.log(-torch.log(uniforms)), NEG_INF)
-    ranked = _top_k(g + logits, m)
+        logits = torch.where(legal,
+                             torch.log(torch.clamp(priors, min=1e-30)),
+                             NEG_INF)
+        if uniforms is None:
+            uniforms = torch.clamp(torch.rand((batch, a), generator=generator,
+                                              device=dev), min=1e-12)
+        g = torch.where(legal, -torch.log(-torch.log(uniforms)), NEG_INF)
+        ranked = _top_k(g + logits, m)
 
     def root_score():
         n_root = packed[:, SL_N, :a]
@@ -405,55 +439,65 @@ def run_gumbel_packed_with_tree(env, cfg: MCTSConfig, eval_fn: EvalFn,
         ok = legal.gather(1, cand.long())
         return torch.where(ok, cand, ranked[:, :1]).to(torch.int32)
 
-    def walk(root_act, fan):
-        return ops.gumbel_select_walk(
-            packed, root_act.reshape(-1).contiguous(), layout,
-            cfg.depth_limit, cfg.gumbel_c_visit, cfg.gumbel_c_scale, fan)
+    def walk(cand, fan):
+        with trace_annotation("az.walk"):
+            return ops.gumbel_select_walk(
+                packed, forced(cand).reshape(-1).contiguous(), layout,
+                cfg.depth_limit, cfg.gumbel_c_visit, cfg.gumbel_c_scale, fan)
 
     for m_k, visits in phases:
         if cfg.gumbel_round_parallel:
             trees = lanes.repeat_interleave(m_k)
             for _ in range(visits):
-                leaf, action, pnodes, pacts, plen = walk(
-                    forced(ranked[:, :m_k]), m_k)
-                write_state, expanding, leaf_value, priors = _expand_and_eval(
-                    env, cfg, eval_fn, net_params, states, trees, leaf,
-                    action)
-                # lane l = tree * m_k + c: column c is one serial simulation
-                for c in range(m_k):
-                    col = slice(c, None, m_k)
-                    _write_slot(states, slot, type(states)(
-                        *(x[col] for x in write_state)))
-                    ops.backup_paths(
-                        packed, pnodes[:, col].contiguous(),
-                        pacts[:, col].contiguous(), plen[col].contiguous(),
-                        leaf_value[col].contiguous(),
-                        expanding[col].contiguous(), slot, layout,
-                        priors[col].contiguous(),
-                        write_state.done[col].contiguous())
-                    _write_parent(carry, slot, leaf[col], action[col],
-                                  expanding[col])
-                    slot += 1
+                leaf, action, pnodes, pacts, plen = walk(ranked[:, :m_k],
+                                                         m_k)
+                # lane l = tree * m_k + c: column c is one serial
+                # simulation, and takes slot slot + c
+                cols = [slice(c, None, m_k) for c in range(m_k)]
+                with trace_annotation("az.expand"):
+                    write_state, expanding = _expand(env, states, trees,
+                                                     leaf, action)
+                    for c, col in enumerate(cols):
+                        _write_slot(states, slot + c, type(states)(
+                            *(x[col] for x in write_state)))
+                        _write_parent(carry, slot + c, leaf[col],
+                                      action[col], expanding[col])
+                with trace_annotation("az.eval"):
+                    leaf_value, priors = _evaluate(env, cfg, eval_fn,
+                                                   net_params, write_state)
+                with trace_annotation("az.backup"):
+                    for c, col in enumerate(cols):
+                        ops.backup_paths(
+                            packed, pnodes[:, col].contiguous(),
+                            pacts[:, col].contiguous(),
+                            plen[col].contiguous(),
+                            leaf_value[col].contiguous(),
+                            expanding[col].contiguous(), slot + c, layout,
+                            priors[col].contiguous(),
+                            write_state.done[col].contiguous())
+                slot += m_k
         else:
             for j in range(m_k * visits):
                 leaf, action, pnodes, pacts, plen = walk(
-                    forced(ranked[:, j % m_k:j % m_k + 1]), 1)
-                write_state, expanding, leaf_value, priors = _expand_and_eval(
-                    env, cfg, eval_fn, net_params, states, lanes, leaf,
-                    action)
-                _write_slot(states, slot, write_state)
-                ops.backup_paths(packed, pnodes, pacts, plen, leaf_value,
-                                 expanding, slot, layout, priors,
-                                 write_state.done)
-                _write_parent(carry, slot, leaf, action, expanding)
+                    ranked[:, j % m_k:j % m_k + 1], 1)
+                write_state, expanding = _expand_slot(
+                    env, carry, lanes, slot, leaf, action, True)
+                with trace_annotation("az.eval"):
+                    leaf_value, priors = _evaluate(env, cfg, eval_fn,
+                                                   net_params, write_state)
+                with trace_annotation("az.backup"):
+                    ops.backup_paths(packed, pnodes, pacts, plen, leaf_value,
+                                     expanding, slot, layout, priors,
+                                     write_state.done)
                 slot += 1
 
-        # halve: the top of the considered set by g + logits + sigma(q_hat);
-        # scoring the full action space with -inf outside the set keeps this
-        # a plain top-k
-        in_set = torch.zeros((batch, a), dtype=torch.bool, device=dev)
-        in_set[lanes[:, None], ranked[:, :m_k].long()] = True
-        ranked = _top_k(torch.where(in_set, root_score(), NEG_INF), m)
+        with trace_annotation("az.halve"):
+            # the top of the considered set by g + logits + sigma(q_hat);
+            # scoring the full action space with -inf outside the set keeps
+            # this a plain top-k
+            in_set = torch.zeros((batch, a), dtype=torch.bool, device=dev)
+            in_set[lanes[:, None], ranked[:, :m_k].long()] = True
+            ranked = _top_k(torch.where(in_set, root_score(), NEG_INF), m)
 
     action = ranked[:, 0]
     n_root = packed[:, SL_N, :a]

@@ -41,6 +41,15 @@ noise of a PUCT search with root noise on, or a Gumbel search's root
 uniforms); with PUCT, the ``[B, A]`` sampling uniforms; on an opening ply,
 the ``[B, A]`` opening uniforms.
 
+Spans (``utils.profiling.trace_annotation``: ``record_function`` ranges
+while a profiler records, nothing otherwise): each ply of both loops is
+``az.head`` (the done check, PCR's draw, the legal mask), ``az.search`` (the
+search call; ``search/tree_packed.py`` lists the spans inside it) and
+``az.move`` (the temperature, the sampling, the opening and the records).
+The env's step follows outside every span, so that a profiler started or
+stopped inside it records whole spans; with reuse, ``play_games`` then
+re-roots the tree inside ``az.advance_root``.
+
 ``encode_board_np`` and ``collect_examples`` (``runner.py:319-405`` there)
 flatten the trajectories into training samples on the host, with the
 value-target mix, the PCR full-ply records, Pente's capture planes and the
@@ -89,6 +98,7 @@ from alphazero_gomoku_tpu_torch.search.tree_packed import (
     run_gumbel_packed_with_tree,
     run_mcts_packed_with_tree,
 )
+from alphazero_gomoku_tpu_torch.utils.profiling import trace_annotation
 
 # smallest positive normal f32: the floor of the Gumbel-max uniforms
 # (jax.random.gumbel draws them from [tiny, 1))
@@ -243,61 +253,68 @@ def play_games(env, cfg: SelfPlayConfig, eval_fn: EvalFn, net_params,
                            device=dev)
 
     for t in range(max_moves):
-        if bool(states.done.all()):
-            break
-        active = ~states.done
-        full = True
-        if cheap_mcts is not None:
-            full = bool(torch.rand((), generator=generator, device=dev)
-                        < cfg.pcr_full_prob)
-        mcfg = cfg.mcts if full else cheap_mcts
-        legal = env.legal_mask(states)
-        if gumbel:
-            if reuse:
+        with trace_annotation("az.head"):
+            if bool(states.done.all()):
+                break
+            active = ~states.done
+            full = True
+            if cheap_mcts is not None:
+                full = bool(torch.rand((), generator=generator, device=dev)
+                            < cfg.pcr_full_prob)
+            mcfg = cfg.mcts if full else cheap_mcts
+            legal = env.legal_mask(states)
+        with trace_annotation("az.search"):
+            if gumbel and reuse:
                 pi, root_q, winner, tree = run_gumbel_packed_with_tree(
                     env, mcfg, eval_fn, net_params, states, generator,
                     carry=tree, ops=ops)
-            else:
+            elif gumbel:
                 pi, root_q, winner = run_gumbel_mcts(
                     env, mcfg, eval_fn, net_params, states, generator,
                     ops=ops)
-            # the halving winner is the move: no temperature sampling
-            actions = torch.where(active, winner, 0)
-        else:
-            move_nums = torch.full((batch,), t, dtype=torch.int32,
-                                   device=dev)
-            if reuse:
-                pi, root_q, tree = run_mcts_packed_with_tree(
-                    env, mcfg, eval_fn, net_params, states, move_nums,
-                    generator, carry=tree, ops=ops)
             else:
-                pi, root_q = run_mcts_with_q(env, mcfg, eval_fn, net_params,
-                                             states, move_nums, generator,
-                                             ops=ops)
-            temp = torch.clamp(1.0 - torch.tensor(t, dtype=torch.float32)
-                               / cfg.temp_threshold, min=0.0)
-            # done games have an all-zero pi; give them a harmless action 0
-            safe_pi = torch.where(active[:, None], pi, 1.0)
-            actions = sample_actions(safe_pi, temp, legal | ~active[:, None],
-                                     generator)
-        opening = t < cfg.opening_random_moves
-        if opening:
-            actions = random_center_actions(legal.to(torch.float32), center,
-                                            generator)
-        boards[t] = states.board
-        players[t] = states.to_move
-        # a cheap ply's pi is all zero: a policy target of weight 0, while
-        # the record still trains the value
-        pis[t] = pi if full else torch.zeros_like(pi)
-        root_qs[t] = root_q
-        # an opening ply's move is not the search's: its record is inactive
-        active_rec[t] = active & (not opening)
-        actions_rec[t] = actions.to(torch.int32)
-        if hasattr(states, "captures"):
-            caps_rec[t] = states.captures
+                move_nums = torch.full((batch,), t, dtype=torch.int32,
+                                       device=dev)
+                if reuse:
+                    pi, root_q, tree = run_mcts_packed_with_tree(
+                        env, mcfg, eval_fn, net_params, states, move_nums,
+                        generator, carry=tree, ops=ops)
+                else:
+                    pi, root_q = run_mcts_with_q(
+                        env, mcfg, eval_fn, net_params, states, move_nums,
+                        generator, ops=ops)
+        with trace_annotation("az.move"):
+            if gumbel:
+                # the halving winner is the move: no temperature sampling
+                actions = torch.where(active, winner, 0)
+            else:
+                temp = torch.clamp(1.0 - torch.tensor(t, dtype=torch.float32)
+                                   / cfg.temp_threshold, min=0.0)
+                # done games have an all-zero pi; give them a harmless
+                # action 0
+                safe_pi = torch.where(active[:, None], pi, 1.0)
+                actions = sample_actions(safe_pi, temp,
+                                         legal | ~active[:, None], generator)
+            opening = t < cfg.opening_random_moves
+            if opening:
+                actions = random_center_actions(legal.to(torch.float32),
+                                                center, generator)
+            boards[t] = states.board
+            players[t] = states.to_move
+            # a cheap ply's pi is all zero: a policy target of weight 0,
+            # while the record still trains the value
+            pis[t] = pi if full else torch.zeros_like(pi)
+            root_qs[t] = root_q
+            # an opening ply's move is not the search's: its record is
+            # inactive
+            active_rec[t] = active & (not opening)
+            actions_rec[t] = actions.to(torch.int32)
+            if hasattr(states, "captures"):
+                caps_rec[t] = states.captures
         states = env.step_safe(states, actions)
         if reuse:
-            tree = packed_advance_root(env, cfg.mcts, tree, actions)
+            with trace_annotation("az.advance_root"):
+                tree = packed_advance_root(env, cfg.mcts, tree, actions)
 
     return Trajectories(
         boards=boards,
@@ -455,35 +472,39 @@ def play_games_continuous(env, cfg: SelfPlayConfig, eval_fn: EvalFn,
                            device=dev)
 
     for t in range(total_steps):
-        full = True
-        if cheap_mcts is not None:
-            full = bool(torch.rand((), generator=generator, device=dev)
-                        < cfg.pcr_full_prob)
-        mcfg = cfg.mcts if full else cheap_mcts
-        legal = env.legal_mask(states)
-        if gumbel:
-            pi, root_q, actions = run_gumbel_mcts(env, mcfg, eval_fn,
-                                                  net_params, states,
-                                                  generator)
-        else:
-            pi, root_q = run_mcts_with_q(env, mcfg, eval_fn, net_params,
-                                         states, states.move_count,
-                                         generator)
-            temp = torch.clamp(1.0 - states.move_count.to(torch.float32)
-                               / cfg.temp_threshold, min=0.0)
-            actions = sample_actions(pi, temp, legal, generator)
-        opening = states.move_count < cfg.opening_random_moves
-        if cfg.opening_random_moves:
-            actions = torch.where(opening, random_center_actions(
-                legal.to(torch.float32), center, generator), actions)
-        boards[t] = states.board
-        players[t] = states.to_move
-        if hasattr(states, "captures"):
-            caps_rec[t] = states.captures
-        pis[t] = pi if full else torch.zeros_like(pi)
-        root_qs[t] = root_q
-        recorded[t] = ~opening
-        actions_rec[t] = actions.to(torch.int32)
+        with trace_annotation("az.head"):
+            full = True
+            if cheap_mcts is not None:
+                full = bool(torch.rand((), generator=generator, device=dev)
+                            < cfg.pcr_full_prob)
+            mcfg = cfg.mcts if full else cheap_mcts
+            legal = env.legal_mask(states)
+        with trace_annotation("az.search"):
+            if gumbel:
+                pi, root_q, actions = run_gumbel_mcts(env, mcfg, eval_fn,
+                                                      net_params, states,
+                                                      generator)
+            else:
+                pi, root_q = run_mcts_with_q(env, mcfg, eval_fn, net_params,
+                                             states, states.move_count,
+                                             generator)
+        with trace_annotation("az.move"):
+            if not gumbel:
+                temp = torch.clamp(1.0 - states.move_count.to(torch.float32)
+                                   / cfg.temp_threshold, min=0.0)
+                actions = sample_actions(pi, temp, legal, generator)
+            opening = states.move_count < cfg.opening_random_moves
+            if cfg.opening_random_moves:
+                actions = torch.where(opening, random_center_actions(
+                    legal.to(torch.float32), center, generator), actions)
+            boards[t] = states.board
+            players[t] = states.to_move
+            if hasattr(states, "captures"):
+                caps_rec[t] = states.captures
+            pis[t] = pi if full else torch.zeros_like(pi)
+            root_qs[t] = root_q
+            recorded[t] = ~opening
+            actions_rec[t] = actions.to(torch.int32)
 
         states = env.step(states, actions)
         ended = states.done | (states.move_count >= max_moves)

@@ -4,7 +4,10 @@ Counterpart of ``alphazero_gomoku_tpu/utils/profiling.py``: ``PhaseTimer``
 collects wall seconds per named phase (the training loop's log lines and
 its history's ``phase_seconds``); ``trace_annotation`` names a region in a
 profile (``torch.profiler.record_function``, for ``jax.profiler``'s
-``TraceAnnotation``); ``start_profiler_trace`` / ``stop_profiler_trace``
+``TraceAnnotation``; it records only while a profiler runs: the self-play
+move loop and the searches open their ``az.*`` regions through it,
+``selfplay/runner.py`` and ``search/tree_packed.py`` list them);
+``start_profiler_trace`` / ``stop_profiler_trace``
 bracket a ``torch.profiler`` trace of the CPU and, where there is a card,
 its CUDA kernels (the kernels launched through ``ctypes`` among them, by
 their names), written as a Chrome trace (``chrome://tracing``, Perfetto)
@@ -54,11 +57,21 @@ class PhaseTimer:
                 for name in self.totals}
 
 
-@contextlib.contextmanager
+# what trace_annotation gives while no profiler records: entering and
+# leaving it does nothing, and one instance serves every caller
+_UNTRACED = contextlib.nullcontext()
+
+
 def trace_annotation(name: str):
-    """A named region in a profile (``torch.profiler.record_function``)."""
-    with torch.profiler.record_function(name):
-        yield
+    """A named region in a profile: ``torch.profiler.record_function(name)``
+    while a profiler records, else a context that does nothing.
+
+    The search and the move loop open several a simulation; an entered
+    ``record_function`` costs microseconds of host time even with no
+    profiler, a check of the profiler's flag a fraction of one."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _UNTRACED
 
 
 # the running trace: one at a time in a process, as jax.profiler's

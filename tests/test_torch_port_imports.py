@@ -1,7 +1,7 @@
 """The port stands alone: no JAX, nothing of the JAX package, no fallback.
 
 The card's machine has no ``jax``, ``flax`` or ``msgpack``, so the port's
-modules, ``chip_smoke.py`` and ``profile_search.py`` must import none of
+modules and ``chip_smoke.py`` must import none of
 them, nothing of ``alphazero_gomoku_tpu`` (even a module there without
 JAX in it), and nothing of the repo's root ``bench.py``, ``tools/`` and
 ``repro/`` (they import the JAX package).  The kernel wrappers take the plain version only for CPU tensors, and have no
@@ -24,8 +24,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack",
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "profile_search.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _imported_modules(path):
