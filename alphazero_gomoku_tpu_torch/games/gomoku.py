@@ -12,6 +12,11 @@ Semantics as in the JAX engine:
   - ``terminal_value`` is -1 for the side to move after any win, 0 on a draw.
 
 Functions return new states; none writes into the state it is given.
+
+On the card ``step``, ``step_safe``, ``encode``, ``legal_mask`` and
+``terminal_value`` are one launch each of a kernel of
+``ops/game_kernels.py``; on the CPU they are the ``*_plain`` methods, which
+run on any device and which the card's tests hold the kernels against.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from typing import NamedTuple
 import torch
 
 from alphazero_gomoku_tpu_torch.device import resolve_device
+from alphazero_gomoku_tpu_torch.ops import game_kernels as gk
 from alphazero_gomoku_tpu_torch.ops.lines import full_board_winner, wins_at
 
 
@@ -110,14 +116,46 @@ class GomokuEnv:
 
     def legal_mask(self, state: GomokuState) -> torch.Tensor:
         """bool ``[B, A]``: the point is empty and the game is not over."""
+        if state.board.is_cpu:
+            return self.legal_mask_plain(state)
+        return gk.legal_mask(state)
+
+    def step(self, state: GomokuState, action: torch.Tensor) -> GomokuState:
+        """Apply one move per lane (assumed legal; see ``step_safe``): one
+        launch of ``ops/game_kernels.py`` on the card, ``step_plain`` on the
+        CPU."""
+        if state.board.is_cpu:
+            return self.step_plain(state, action)
+        return GomokuState(*gk.step(state, action, None, False))
+
+    def step_safe(self, state: GomokuState,
+                  action: torch.Tensor) -> GomokuState:
+        """Like ``step`` but a no-op on finished games (lockstep batches)."""
+        if state.board.is_cpu:
+            return self.step_safe_plain(state, action)
+        return GomokuState(*gk.step(state, action, None, True))
+
+    def encode(self, state: GomokuState) -> torch.Tensor:
+        """float32 ``[B, size, size, 3]`` NHWC observation for the network."""
+        if state.board.is_cpu:
+            return self.encode_plain(state)
+        return gk.encode(state, 3, 0)
+
+    def terminal_value(self, state: GomokuState) -> torch.Tensor:
+        """f32 ``[B]``: -1 for the side to move after a win, 0 on a draw."""
+        if state.winner.is_cpu:
+            return self.terminal_value_plain(state)
+        return gk.terminal_value(state.winner)
+
+    # The plain versions, on any device: the CPU's path, and what the card's
+    # tests hold the kernels against.
+    def legal_mask_plain(self, state: GomokuState) -> torch.Tensor:
         empty = (state.board == 0).reshape(state.board.shape[0], -1)
         return empty & ~state.done[:, None]
 
-    def step(self, state: GomokuState, action: torch.Tensor) -> GomokuState:
-        """Apply one move per lane (assumed legal; see ``step_safe``).
-
-        The winner is found incrementally from the placed stone.
-        """
+    def step_plain(self, state: GomokuState,
+                   action: torch.Tensor) -> GomokuState:
+        """The winner is found incrementally from the placed stone."""
         action = action.to(torch.int32)
         a64 = action.long()
         r, c = a64 // self.size, a64 % self.size
@@ -139,13 +177,11 @@ class GomokuEnv:
             done=done,
         )
 
-    def step_safe(self, state: GomokuState,
-                  action: torch.Tensor) -> GomokuState:
-        """Like ``step`` but a no-op on finished games (lockstep batches)."""
-        return where_state(state.done, state, self.step(state, action))
+    def step_safe_plain(self, state: GomokuState,
+                        action: torch.Tensor) -> GomokuState:
+        return where_state(state.done, state, self.step_plain(state, action))
 
-    def encode(self, state: GomokuState) -> torch.Tensor:
-        """float32 ``[B, size, size, 3]`` NHWC observation for the network."""
+    def encode_plain(self, state: GomokuState) -> torch.Tensor:
         me = state.to_move.to(torch.int8).view(-1, 1, 1)
         board = state.board
         return torch.stack(
@@ -158,6 +194,5 @@ class GomokuEnv:
             dim=-1,
         )
 
-    def terminal_value(self, state: GomokuState) -> torch.Tensor:
-        """f32 ``[B]``: -1 for the side to move after a win, 0 on a draw."""
+    def terminal_value_plain(self, state: GomokuState) -> torch.Tensor:
         return torch.where(state.winner == 0, 0.0, -1.0).to(torch.float32)

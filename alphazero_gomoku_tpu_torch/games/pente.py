@@ -20,6 +20,9 @@ Unlike Gomoku, a game is not over when ``move_count`` reaches the number of
 points: captures free squares, so the draw is a full board after the
 captures.  With ``capture_planes`` the observation has two more planes, the
 side to move's and the opponent's captured pairs over ``pairs_to_win``.
+
+As in ``gomoku.py``, the game methods launch one kernel each on the card
+(``ops/game_kernels.py``) and run the ``*_plain`` methods on the CPU.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import torch
 
 from alphazero_gomoku_tpu_torch.device import resolve_device
 from alphazero_gomoku_tpu_torch.games.gomoku import where_state
+from alphazero_gomoku_tpu_torch.ops import game_kernels as gk
 from alphazero_gomoku_tpu_torch.ops.lines import full_board_winner, wins_at
 
 # the 8 rays of capture detection, in the JAX engine's order
@@ -146,13 +150,49 @@ class PenteEnv:
 
     def legal_mask(self, state: PenteState) -> torch.Tensor:
         """bool ``[B, A]``: the point is empty and the game is not over."""
-        empty = (state.board == 0).reshape(state.board.shape[0], -1)
-        return empty & ~state.done[:, None]
+        if state.board.is_cpu:
+            return self.legal_mask_plain(state)
+        return gk.legal_mask(state)
 
     def step(self, state: PenteState, action: torch.Tensor) -> PenteState:
         """Apply one move per lane (assumed legal; see ``step_safe``):
         place, capture on every matching ray, then the win (captures first,
-        then 5 in a row through the stone) and the full-board draw."""
+        then 5 in a row through the stone) and the full-board draw.  One
+        launch of ``ops/game_kernels.py`` on the card, ``step_plain`` on
+        the CPU."""
+        if state.board.is_cpu:
+            return self.step_plain(state, action)
+        return PenteState(*gk.step(state, action, self.pairs_to_win, False))
+
+    def step_safe(self, state: PenteState,
+                  action: torch.Tensor) -> PenteState:
+        """Like ``step`` but a no-op on finished games (lockstep batches)."""
+        if state.board.is_cpu:
+            return self.step_safe_plain(state, action)
+        return PenteState(*gk.step(state, action, self.pairs_to_win, True))
+
+    def encode(self, state: PenteState) -> torch.Tensor:
+        """float32 ``[B, size, size, 3 | 5]`` NHWC observation: Gomoku's
+        planes, and with ``capture_planes`` the side to move's and the
+        opponent's captured pairs over ``pairs_to_win``."""
+        if state.board.is_cpu:
+            return self.encode_plain(state)
+        return gk.encode(state, self.obs_channels, self.pairs_to_win)
+
+    def terminal_value(self, state: PenteState) -> torch.Tensor:
+        """f32 ``[B]``: -1 for the side to move after a win, 0 on a draw."""
+        if state.winner.is_cpu:
+            return self.terminal_value_plain(state)
+        return gk.terminal_value(state.winner)
+
+    # The plain versions, on any device: the CPU's path, and what the card's
+    # tests hold the kernels against.
+    def legal_mask_plain(self, state: PenteState) -> torch.Tensor:
+        empty = (state.board == 0).reshape(state.board.shape[0], -1)
+        return empty & ~state.done[:, None]
+
+    def step_plain(self, state: PenteState,
+                   action: torch.Tensor) -> PenteState:
         size = self.size
         action = action.to(torch.int32)
         a64 = action.long()
@@ -204,22 +244,23 @@ class PenteEnv:
             captures=captures,
         )
 
-    def step_safe(self, state: PenteState,
-                  action: torch.Tensor) -> PenteState:
-        """Like ``step`` but a no-op on finished games (lockstep batches)."""
-        return where_state(state.done, state, self.step(state, action))
+    def step_safe_plain(self, state: PenteState,
+                        action: torch.Tensor) -> PenteState:
+        return where_state(state.done, state, self.step_plain(state, action))
 
-    def encode(self, state: PenteState) -> torch.Tensor:
-        """float32 ``[B, size, size, 3 | 5]`` NHWC observation: Gomoku's
-        planes, and with ``capture_planes`` the side to move's and the
-        opponent's captured pairs over ``pairs_to_win``."""
+    def encode_plain(self, state: PenteState) -> torch.Tensor:
         me = state.to_move.to(torch.int8).view(-1, 1, 1)
         board = state.board
         ones = torch.ones(board.shape, dtype=torch.float32,
                           device=board.device)
         planes = [(board == me).float(), (board == 3 - me).float(), ones]
         if self.capture_planes:
-            caps = state.captures.float() / float(self.pairs_to_win)
+            # a divisor held in a tensor on the state's device: a Python
+            # number would make CUDA multiply by its rounded reciprocal,
+            # which differs from k / pairs_to_win from k = 9 (pairs_to_win
+            # 5); the CPU divides either way
+            caps = state.captures.float() / state.captures.new_full(
+                (), self.pairs_to_win, dtype=torch.float32)
             lanes = torch.arange(board.shape[0], device=board.device)
             mine = caps[lanes, state.to_move.long() - 1]
             theirs = caps[lanes, 2 - state.to_move.long()]
@@ -227,6 +268,5 @@ class PenteEnv:
                        ones * theirs.view(-1, 1, 1)]
         return torch.stack(planes, dim=-1)
 
-    def terminal_value(self, state: PenteState) -> torch.Tensor:
-        """f32 ``[B]``: -1 for the side to move after a win, 0 on a draw."""
+    def terminal_value_plain(self, state: PenteState) -> torch.Tensor:
         return torch.where(state.winner == 0, 0.0, -1.0).to(torch.float32)

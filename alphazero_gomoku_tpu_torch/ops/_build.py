@@ -12,8 +12,9 @@ with a plain C interface:
 tower build with ``--fmad=false``, so that no multiply and add are
 contracted into an FMA and they round as their plain versions do; the bf16
 tower, the rate probe (only tensor-core sums), the slice write (its one
-multiply and add rounded apart by intrinsics) and the latency probes (no
-arithmetic) build without it.  No PyTorch
+multiply and add rounded apart by intrinsics), the latency probes (no
+arithmetic) and the game step (one IEEE division, no multiply and add)
+build without it; no source takes a fast-math flag.  No PyTorch
 headers are included, so a build takes seconds.  The two towers include
 ``csrc/conv_tile.cuh``, their shared core, found beside the source.
 :func:`build_all` starts one ``nvcc`` per source at once.  The library name
@@ -51,6 +52,7 @@ SOURCE_FLAGS = {
     "matmul_rate": (),
     "width1_slice": (),
     "latency_floor": (),
+    "game_step": (),
 }
 
 

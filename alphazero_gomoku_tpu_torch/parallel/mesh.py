@@ -71,7 +71,7 @@ from alphazero_gomoku_tpu_torch.selfplay.runner import (
 
 # the kernels of the sharded paths, built by rank 0 before the others load
 # them (ops/_build.py)
-_PATH_KERNELS = ("tree_kernels", "fused_net", "int8_tower")
+_PATH_KERNELS = ("tree_kernels", "fused_net", "int8_tower", "game_step")
 
 
 @dataclasses.dataclass(frozen=True)

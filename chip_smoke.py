@@ -103,6 +103,14 @@ weights made from ``--seed`` (their BN stats fitted to random boards,
     ``backup_paths`` (all three modes), ``gumbel_select_walk`` and
     ``int8_tower``.
 
+The game step's four kernels (``ops/game_kernels.py``: ``step`` in its
+two modes, ``encode``, ``legal_mask``, ``terminal_value``; phase 2c,
+``game_phases``) are held against the env's plain methods at the cells'
+shapes (15x15, 128 lanes, Gomoku at 3 planes and Pente at 3 and 5) and at
+1024 lanes, then timed beside their byte bound, an empty kernel's replay
+and the host's microseconds a wrapper call; on the PUCT, Gumbel-reuse and
+Pente main paths every call of a game method must launch its kernel once.
+
 ``width1_slice_write`` is held (exactly) on the repro's shape and on rows
 whose byte count is not a multiple of 16, with C at both edges, and timed
 by graph replay beside an empty kernel's replay, its floor.  One float32
@@ -181,6 +189,7 @@ from alphazero_gomoku_tpu_torch.models.model import (
 )
 from alphazero_gomoku_tpu_torch.ops import _build
 from alphazero_gomoku_tpu_torch.ops import fused_net as fn
+from alphazero_gomoku_tpu_torch.ops import game_kernels as gk
 from alphazero_gomoku_tpu_torch.ops import int8_net as q8
 from alphazero_gomoku_tpu_torch.ops import int8_tower as t8
 from alphazero_gomoku_tpu_torch.native import load_puremcts
@@ -450,7 +459,25 @@ KERNEL_ROWS = {
     "width1_slice_write": dict(
         source="alphazero_gomoku_tpu_torch/csrc/width1_slice.cu",
         replaces="repro/mosaic_width1_slice_hang.py:31"),
+    # the game step's four kernels replace no TPU kernel (the JAX game step
+    # is plain jnp); step_safe is the step kernel's other mode
+    "game_step": dict(
+        source="alphazero_gomoku_tpu_torch/csrc/game_step.cu",
+        replaces=None),
+    "game_encode": dict(
+        source="alphazero_gomoku_tpu_torch/csrc/game_step.cu",
+        replaces=None),
+    "game_legal_mask": dict(
+        source="alphazero_gomoku_tpu_torch/csrc/game_step.cu",
+        replaces=None),
+    "game_terminal_value": dict(
+        source="alphazero_gomoku_tpu_torch/csrc/game_step.cu",
+        replaces=None),
 }
+# the env methods the game kernels serve, by the row of their kernel
+GAME_ROWS = {"step": "game_step", "step_safe": "game_step",
+             "encode": "game_encode", "legal_mask": "game_legal_mask",
+             "terminal_value": "game_terminal_value"}
 
 
 def log(msg: str):
@@ -799,7 +826,7 @@ def main() -> int:
     with Phase("2 build (one nvcc per source, at once)"):
         libs = _build.build_all(["tree_kernels", "fused_net", "int8_tower",
                                  "matmul_rate", "width1_slice",
-                                 "latency_floor"])
+                                 "latency_floor", "game_step"])
         for built in libs.values():
             how = "reused an earlier build" if built.reused else "built"
             log(f"{how}: {built.path.name}, nvcc {built.seconds:.2f} s")
@@ -812,7 +839,8 @@ def main() -> int:
                 ("tree_kernels", "gumbel_select_walk_kernel",
                  "gumbel_select_walk"),
                 ("matmul_rate", "rate_resident", "matmul_rate_int8"),
-                ("matmul_rate", "rate_streamed", "matmul_rate_int8")):
+                ("matmul_rate", "rate_streamed", "matmul_rate_int8"),
+                ("game_step", "step_kernel", "game_step")):
             regs, spills = check_spills(libs[lib], match)
             rows[row].setdefault("ptxas_registers", {})[match] = regs
             rows[row]["ptxas_spill_bytes"] = (
@@ -823,6 +851,7 @@ def main() -> int:
         weights = smoke_weights(net_cfg, args.seed, dev)
         net = bundle_of(net_cfg, *weights, device=dev)
     eval_fn = make_eval_fn()
+    game_phases(args, dev, rows)
 
     grow = dataclasses.replace(MAIN_MCTS, n_simulations=GROW_SIMS,
                                max_nodes=MAIN_MCTS.node_capacity)
@@ -896,11 +925,13 @@ def main() -> int:
                f"{BOARD}x{BOARD}, PUCT@{SIMS} float32, {F32_MOVES} moves (cut "
                f"from {MOVES}; the int8 tower's PUCT path runs {MOVES})"):
         reset_launch_counts()
+        counted = CountingEnv(env)
         t0 = time.perf_counter()
-        traj = play_games(env, sp_cfg, eval_fn, net, gen, dev)
+        traj = play_games(counted, sp_cfg, eval_fn, net, gen, dev)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = launch_counts()
+        expect_game_launches("PUCT main path", counted, rows, "puct400")
         moves_done = int(torch.clamp(traj.moves_played, max=F32_MOVES).sum())
         log(f"main path: {moves_done} moves in {seconds:.3f} s = "
             f"{moves_done / seconds:.2f} moves/s (batch {BATCH}, 6x128, "
@@ -1382,6 +1413,7 @@ def envelope_phases(dev, rows, smi):
 
 
 def reset_launch_counts():
+    gk.reset_launch_counts()
     tk.reset_launch_counts()
     fn.reset_launch_counts()
     t8.reset_launch_counts()
@@ -1417,6 +1449,133 @@ def expect_launches(path: str, got, want, some=()):
         elif n != want.get(name, 0):
             raise AssertionError(f"{path}: {name} launched {n} times, "
                                  f"expected {want.get(name, 0)}")
+
+
+class CountingEnv:
+    """The env with its calls of the game kernels' methods counted."""
+
+    def __init__(self, env):
+        self._env = env
+        self.calls = dict.fromkeys(GAME_ROWS, 0)
+
+    def __getattr__(self, name):
+        method = getattr(self._env, name)
+        if name not in GAME_ROWS:
+            return method
+
+        def call(*args, **kwargs):
+            self.calls[name] += 1
+            return method(*args, **kwargs)
+        return call
+
+
+def expect_game_launches(path: str, counted: CountingEnv, rows, key: str):
+    """Every call of a game method on ``path`` launched its kernel once
+    (the game kernels launch on every path, so ``launch_counts`` and
+    ``expect_launches`` leave them out)."""
+    want = dict.fromkeys(GAME_ROWS.values(), 0)
+    for method, n in counted.calls.items():
+        want[GAME_ROWS[method]] += n
+    got = gk.launch_counts()
+    log(f"game kernel launches on the {path}: {got}; env method calls "
+        f"{counted.calls}")
+    if got != want or not all(got.values()):
+        raise AssertionError(f"{path}: game kernel launches {got}, calls "
+                             f"{want}")
+    for name, n in got.items():
+        rows[name].setdefault("launches_by_path", {})[key] = n
+
+
+def game_bytes(name: str, env, batch: int) -> int:
+    """The bytes a game kernel must move: each input read once, each output
+    written once (int32 scalars, bool flags, int8 boards)."""
+    cells = env.num_actions
+    pente = env.name == "pente"
+    scalars = batch * (4 * 4 + 1 + (8 if pente else 0))   # a state's
+    if name in ("step", "step_safe"):
+        return 2 * (batch * cells + scalars) + 4 * batch
+    if name == "encode":
+        return (batch * (cells + 4 + (8 if env.obs_channels == 5 else 0))
+                + 4 * batch * cells * env.obs_channels)
+    if name == "legal_mask":
+        return 2 * batch * cells + batch
+    return 8 * batch                                      # terminal_value
+
+
+def host_us(fn, calls: int = 400) -> float:
+    """The host's microseconds a call of ``fn()``, the card keeping up (a
+    game kernel's device time is below a wrapper call's host time)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / calls * 1e6
+
+
+def game_phases(args, dev, rows):
+    """Phase 2c: the four game kernels against the env's plain methods at
+    the cells' shapes (15x15 Gomoku at 3 planes, Pente at 3 and 5; 128
+    lanes) and at 1024 lanes, on positions of 40 random plies (played by
+    the plain methods): every output bit for bit, then the times (CUDA-graph
+    replay of 50 calls, one eager call, the host's microseconds a wrapper
+    call, the plain version), the byte bound and the floor (an empty
+    kernel's replay)."""
+    with Phase("2c game kernels against the env's plain methods (15x15; "
+               "128 and 1024 lanes)"):
+        empty = lf.empty_ms()
+        gen = phase_gen(args.seed, 2, dev)
+        for game, planes in (("gomoku", 3), ("pente", 3), ("pente", 5)):
+            env = make_env(game, BOARD, capture_planes=planes == 5)
+            for batch in (128, 1024):
+                states = env.init_batch(batch, dev)
+                for _ in range(40):
+                    legal = env.legal_mask_plain(states)
+                    u = torch.rand(legal.shape, generator=gen, device=dev)
+                    states = env.step_safe_plain(states, torch.argmax(
+                        torch.where(legal, u, -1.0), dim=1))
+                legal = env.legal_mask_plain(states)
+                u = torch.rand(legal.shape, generator=gen, device=dev)
+                action = torch.argmax(torch.where(legal, u, -1.0), dim=1)
+                done = int(states.done.sum())
+                for method, row in GAME_ROWS.items():
+                    args_ = (action,) if method.startswith("step") else ()
+                    kernel = getattr(env, method)
+                    plain = getattr(env, method + "_plain")
+                    got, want = kernel(states, *args_), plain(states, *args_)
+                    for g, w in zip(*((got, want) if isinstance(got, tuple)
+                                      else ((got,), (want,)))):
+                        if not (g.dtype == w.dtype and torch.equal(g, w)):
+                            raise AssertionError(
+                                f"{game} {planes} planes {method}: kernel "
+                                f"!= plain (tolerance 0)")
+
+                    def call(kernel=kernel, args_=args_):
+                        return kernel(states, *args_)
+
+                    t = dict(ms=graph_ms(call, 50), eager_ms=cuda_ms(call, 50),
+                             host_us=host_us(call),
+                             plain_ms=cuda_ms(lambda plain=plain, args_=args_:
+                                              plain(states, *args_), reps=20,
+                                              warmup=2),
+                             plain_host_us=host_us(
+                                 lambda plain=plain, args_=args_:
+                                 plain(states, *args_), calls=50),
+                             bound_ms=game_bytes(method, env, batch)
+                             / HBM_BYTES_PER_S * 1e3,
+                             floor_ms=empty)
+                    rows[row][f"{game}{planes}_b{batch}"
+                              + ("_safe" if method == "step_safe" else "")] = t
+                    log(f"{method} {game} {planes} planes, {batch} lanes "
+                        f"({done} done): kernel == plain, tolerance 0; kernel "
+                        f"{t['ms']:.4f} ms (CUDA graph replay; eager call "
+                        f"{t['eager_ms']:.4f} ms; host {t['host_us']:.1f} us "
+                        f"a call), plain {t['plain_ms']:.4f} ms (host "
+                        f"{t['plain_host_us']:.1f} us a call), bound "
+                        f"{t['bound_ms']:.6f} ms (bytes), floor "
+                        f"{empty:.4f} ms")
 
 
 def gumbel_phases(args, env, net_cfg, weights, net, dev, rows, smi):
@@ -1611,11 +1770,14 @@ def gumbel_phases(args, env, net_cfg, weights, net, dev, rows, smi):
                f"bf16, {BOARD}x{BOARD}, Gumbel@{GUMBEL_SIMS} m={GUMBEL_M}, "
                f"{MOVES} moves"):
         reset_launch_counts()
+        counted = CountingEnv(env)
         t0 = time.perf_counter()
-        traj = play_games(env, sp_cfg, fused_eval, folded, gen, dev)
+        traj = play_games(counted, sp_cfg, fused_eval, folded, gen, dev)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = launch_counts()
+        expect_game_launches("Gumbel reuse main path", counted, rows,
+                             "gumbel64_reuse48")
         moves_done = int(torch.clamp(traj.moves_played, max=MOVES).sum())
         log(f"Gumbel main path: {moves_done} moves in {seconds:.3f} s = "
             f"{moves_done / seconds:.2f} moves/s (batch {BATCH}, 6x128 fused "
@@ -1788,11 +1950,14 @@ def int8_phases(args, env, net_cfg, weights, net, dev, rows, smi):
     with Phase(f"14b int8 main path: play_games batch {BATCH}, 6x128 int8 "
                f"tower, {BOARD}x{BOARD}, PUCT@{SIMS}, {MOVES} moves"):
         reset_launch_counts()
+        counted = CountingEnv(env)
         t0 = time.perf_counter()
-        traj = play_games(env, sp_cfg, tower_eval, packed, gen, dev)
+        traj = play_games(counted, sp_cfg, tower_eval, packed, gen, dev)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = launch_counts()
+        expect_game_launches("Pente PUCT main path", counted, rows,
+                             f"pente_puct{SIMS}_b{PENTE_BATCH}")
         moves_done = int(torch.clamp(traj.moves_played, max=MOVES).sum())
         log(f"int8 main path: {moves_done} moves in {seconds:.3f} s = "
             f"{moves_done / seconds:.2f} moves/s (batch {BATCH}, 6x128 int8 "
@@ -2655,8 +2820,8 @@ def player_phases(args, net_cfg, weights, dev, rows, smi):
             game = make_host_game("gomoku", BOARD)
             think = {1: [], 2: []}
             searched = {1: 0, 2: 0}
-            got = {1: dict.fromkeys(KERNEL_ROWS, 0),
-                   2: dict.fromkeys(KERNEL_ROWS, 0)}
+            got = {1: dict.fromkeys(launch_counts(), 0),
+                   2: dict.fromkeys(launch_counts(), 0)}
             for turn in range(1, PLAYER_PLIES + 1):
                 seat = game.current_player
                 # a move the tactical guard makes runs no search

@@ -29,6 +29,7 @@ from alphazero_gomoku_tpu_torch.models.model import (
     train_step,
 )
 from alphazero_gomoku_tpu_torch.ops import fused_net as fn
+from alphazero_gomoku_tpu_torch.ops import game_kernels as gk
 from alphazero_gomoku_tpu_torch.ops import int8_net as q8
 from alphazero_gomoku_tpu_torch.ops import int8_tower as t8
 from alphazero_gomoku_tpu_torch.ops import tree_kernels as tk
@@ -45,6 +46,10 @@ from alphazero_gomoku_tpu_torch.search.tree_packed import (
     run_gumbel_packed_with_tree,
     run_mcts_packed,
     run_mcts_packed_with_tree,
+)
+from alphazero_gomoku_tpu_torch.selfplay.runner import (
+    SelfPlayConfig,
+    play_games,
 )
 from alphazero_gomoku_tpu_torch.tools import matmul_rate as mr
 
@@ -1079,3 +1084,302 @@ def test_batch_1024_kernels_equal_plain():
                             ev.make_sides("int8t", net_cfg, eval_fn), bundle,
                             5, net_cfg=net_cfg, device=dev)
     assert run.line["ok"] and run.line["match"], run.line
+
+
+# ----------------------------------------------------------------------
+# the game step (csrc/game_step.cu) against the env's plain methods
+# ----------------------------------------------------------------------
+GAME_ENVS = [("gomoku", False), ("pente", False), ("pente", True)]
+GAME_IDS = ["gomoku", "pente3", "pente5"]
+GAME_METHODS = ("step", "step_safe", "encode", "legal_mask",
+                "terminal_value")
+
+
+class _PlainEnv:
+    """An env whose game methods are its plain versions (on the card too)."""
+
+    def __init__(self, env):
+        self._env = env
+
+    def __getattr__(self, name):
+        if name in GAME_METHODS:
+            return getattr(self._env, name + "_plain")
+        return getattr(self._env, name)
+
+
+class _CountingEnv:
+    """The env with its calls of each game method counted."""
+
+    def __init__(self, env):
+        self._env = env
+        self.calls = dict.fromkeys(GAME_METHODS, 0)
+
+    def __getattr__(self, name):
+        method = getattr(self._env, name)
+        if name not in GAME_METHODS:
+            return method
+
+        def call(*args, **kwargs):
+            self.calls[name] += 1
+            return method(*args, **kwargs)
+        return call
+
+
+def _assert_same(got, want, what):
+    """Equal bit for bit: type, dtype, shape and every bit of every value."""
+    if want is None:
+        assert got is None, what
+        return
+    if isinstance(want, tuple):
+        assert type(got) is type(want), what
+        for name, g, w in zip(want._fields, got, want):
+            _assert_same(g, w, f"{what}.{name}")
+        return
+    assert got.dtype == want.dtype and got.shape == want.shape, what
+    if want.dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    assert torch.equal(got, want), what
+
+
+def _hold_game(env, states, action):
+    """Each of the env's four kernels (step in both forms) equals its plain
+    version on ``states``."""
+    for name in GAME_METHODS:
+        args = (action,) if name.startswith("step") else ()
+        got = getattr(env, name)(states, *args)
+        want = getattr(env, name + "_plain")(states, *args)
+        _assert_same(got, want, f"{env.name} {name}")
+
+
+def _random_actions(legal, g):
+    """A uniform legal point a lane (0 on lanes with none)."""
+    u = torch.rand(legal.shape, generator=g, device=legal.device)
+    return torch.argmax(torch.where(legal, u, -1.0), dim=1)
+
+
+@pytest.mark.parametrize("batch", [1, 128, 1024])
+@pytest.mark.parametrize("size", [7, 9, 15, 22])
+@pytest.mark.parametrize("game,planes5", GAME_ENVS, ids=GAME_IDS)
+def test_game_kernels_equal_plain_in_random_play(game, planes5, size, batch):
+    """Random games to their end (done lanes stepped by ``step`` and
+    left alone by ``step_safe``), every ply held; 22x22 is the largest
+    board the kernels take."""
+    dev = _card()
+    env = make_env(game, size, capture_planes=planes5)
+    g = torch.Generator(device=dev).manual_seed(1000 * size + batch)
+    states = env.init_batch(batch, dev)
+    for ply in range(2 * size * size):   # Pente's captures free points
+        action = _random_actions(env.legal_mask_plain(states), g)
+        _hold_game(env, states, action)
+        states = env.step_safe_plain(states, action)
+        if ply % 16 == 15 and bool(states.done.all()):
+            break
+    assert bool(states.done.all())
+
+
+def _pente_lanes(size, lanes, dev):
+    """Pente positions from ``(stones, to_move, captures)`` lanes, where
+    ``stones`` maps a point to its player (``from_board``, on the card)."""
+    board = torch.zeros((len(lanes), size, size), dtype=torch.int8)
+    for i, (stones, _, _) in enumerate(lanes):
+        for (r, c), v in stones.items():
+            board[i, r, c] = v
+    env = make_env("pente", size, capture_planes=True)
+    return env, env.from_board(
+        board.to(dev), torch.tensor([x[1] for x in lanes], device=dev),
+        torch.tensor([x[2] for x in lanes], device=dev))
+
+
+def _anchored(point, ray, me=1, opp=2):
+    """opp, opp, me at distance 1, 2, 3 of ``point`` along ``ray``."""
+    (r, c), (dr, dc) = point, ray
+    return {(r + dr, c + dc): opp, (r + 2 * dr, c + 2 * dc): opp,
+            (r + 3 * dr, c + 3 * dc): me}
+
+
+def test_game_step_kernel_equals_plain_on_pente_captures():
+    """Two and three captures in one move, at a corner and an edge, rays
+    that leave the board, a capture win at ``pairs_to_win`` (and past
+    it), and the mover's five beside a capture."""
+    dev = _card()
+    rays = ((1, 0), (0, 1), (1, 1), (-1, 1), (0, -1))
+    three = {}
+    for ray in rays[:3]:
+        three.update(_anchored((7, 7), ray))
+    corner = {**_anchored((0, 0), (1, 0)), **_anchored((0, 0), (0, 1))}
+    edge = {**_anchored((14, 7), (-1, 0)), **_anchored((14, 7), (0, 1)),
+            **_anchored((14, 7), (0, -1))}
+    off = {(0, 13): 2, (0, 14): 2}          # the anchor would be off board
+    five = {**_anchored((7, 7), (1, 1)),
+            (7, 3): 1, (7, 4): 1, (7, 5): 1, (7, 6): 1}
+    lanes = [(three, 1, (0, 0)), (corner, 1, (1, 3)), (edge, 1, (0, 0)),
+             (off, 1, (0, 0)), ({**_anchored((7, 7), (0, 1))}, 1, (4, 0)),
+             (three, 1, (3, 4)), (five, 1, (0, 0)),
+             ({k: 3 - v for k, v in three.items()}, 2, (0, 4))]
+    env, states = _pente_lanes(15, lanes, dev)
+    action = torch.tensor([112, 0, 217, 12, 112, 112, 112, 112],
+                          dtype=torch.int32, device=dev)
+    _hold_game(env, states, action)
+    after = env.step(states, action)
+    assert after.captures[:, 0].tolist()[:7] == [3, 3, 3, 0, 5, 6, 1]
+    assert after.captures[7].tolist() == [0, 7]
+    assert after.winner.tolist() == [0, 0, 0, 0, 1, 1, 1, 2]
+
+
+def test_game_step_kernel_equals_plain_when_a_capture_breaks_a_line():
+    """Player 2 has four in a row; player 1 captures one of its stones
+    (with a stone off the line), and player 2's fifth stone then makes
+    no five, where without the capture it wins."""
+    dev = _card()
+    line = {(5, 3): 2, (5, 4): 2, (5, 5): 2, (5, 6): 2, (6, 3): 2, (7, 2): 1}
+    env, states = _pente_lanes(15, [(line, 1, (0, 0)), (line, 1, (0, 0))],
+                               dev)
+    # lane 0 captures (5, 4) and (6, 3) from (4, 5); lane 1 plays away
+    first = torch.tensor([4 * 15 + 5, 0], dtype=torch.int32, device=dev)
+    _hold_game(env, states, first)
+    states = env.step(states, first)
+    second = torch.full((2,), 5 * 15 + 7, dtype=torch.int32, device=dev)
+    _hold_game(env, states, second)
+    after = env.step(states, second)
+    assert after.winner.tolist() == [0, 2]
+    assert after.captures[:, 0].tolist() == [1, 0]
+
+
+@pytest.mark.parametrize("game,planes5", GAME_ENVS, ids=GAME_IDS)
+def test_game_kernels_equal_plain_on_full_board_draws(game, planes5):
+    """Boards too small for five (3x3, 4x4) played until every game is
+    over: full-board draws, and on 4x4 Pente's captures freeing points."""
+    dev = _card()
+    for size in (3, 4):
+        env = make_env(game, size, capture_planes=planes5)
+        g = torch.Generator(device=dev).manual_seed(size)
+        states = env.init_batch(256, dev)
+        for ply in range(64 * size * size):
+            action = _random_actions(env.legal_mask_plain(states), g)
+            _hold_game(env, states, action)
+            states = env.step_safe_plain(states, action)
+            if ply % 16 == 15 and bool(states.done.all()):
+                break
+        assert bool(states.done.all())
+        assert bool((states.winner == 0).any())
+
+
+def test_capture_planes_divide_as_the_cpu_does():
+    """``k / pairs_to_win`` for k = 0..12 on both sides: the kernel, the
+    plain version on the card and the plain version on the CPU agree bit
+    for bit (k = 9 is the first k whose product with the rounded 1/5
+    differs from the quotient)."""
+    dev = _card()
+    env = make_env("pente", 15, capture_planes=True)
+    states = env.init_batch(13 * 13, dev)
+    k = torch.arange(13, dtype=torch.int32, device=dev)
+    states = states._replace(
+        captures=torch.stack(torch.meshgrid(k, k, indexing="ij"),
+                             dim=-1).reshape(-1, 2).contiguous(),
+        to_move=(torch.arange(169, device=dev, dtype=torch.int32) % 2) + 1)
+    got = env.encode(states)
+    _assert_same(got, env.encode_plain(states), "encode")
+    cpu = type(states)(*(x.cpu() for x in states))
+    _assert_same(got.cpu(), env.encode_plain(cpu), "encode on the CPU")
+
+
+@pytest.mark.parametrize("game,planes5", GAME_ENVS, ids=GAME_IDS)
+def test_game_kernels_equal_plain_on_strided_inputs(game, planes5):
+    """The ``x[:, 1]`` slices of a node-state stack (lane strides, no
+    copy), a board transposed within its lanes (copied), and int64
+    actions."""
+    dev = _card()
+    env = make_env(game, 15, capture_planes=planes5)
+    g = torch.Generator(device=dev).manual_seed(3)
+    stack = []
+    for plies in (5, 30, 60):
+        states = env.init_batch(64, dev)
+        for _ in range(plies):
+            states = env.step_safe_plain(
+                states, _random_actions(env.legal_mask_plain(states), g))
+        stack.append(states)
+    stacked = type(states)(*(torch.stack(xs, dim=1) for xs in zip(*stack)))
+    sliced = type(states)(*(x[:, 1] for x in stacked))
+    assert not sliced.board.is_contiguous()
+    dense = type(states)(*(x.contiguous() for x in sliced))
+    action = _random_actions(env.legal_mask_plain(dense), g)
+    for name in GAME_METHODS:
+        args = (action,) if name.startswith("step") else ()
+        got = getattr(env, name)(sliced, *args)
+        want = getattr(env, name + "_plain")(dense, *args)
+        _assert_same(got, want, f"{name} on slices")
+    _hold_game(env, dense, action.to(torch.int32))
+    flipped = dense._replace(board=dense.board.transpose(1, 2))
+    _hold_game(env, flipped, action)
+
+
+@pytest.mark.parametrize("game,planes5,search", [
+    ("gomoku", False, "puct"), ("pente", True, "gumbel")],
+    ids=["gomoku-puct", "pente5-gumbel-reuse"])
+def test_play_games_on_game_kernels_equals_plain(game, planes5, search):
+    """One whole ``play_games`` call at a fixed seed, the env on its
+    kernels and on its plain versions: identical trajectories, and on the
+    kernels one launch for each call of a game method."""
+    dev = _card()
+    size = 9
+    env = make_env(game, size, capture_planes=planes5)
+    cfg = NetConfig(board_size=size, action_size=size * size,
+                    in_channels=env.obs_channels, n_res_blocks=2,
+                    channels=32)
+    params, stats = init_params(cfg, 5)
+    obs = torch.as_tensor(q8.random_calib_obs(cfg, cin=env.obs_channels,
+                                              seed=6))
+    net = bundle_of(cfg, params,
+                    fit_batch_stats(cfg, params, stats, obs, device=dev),
+                    device=dev)
+    if search == "gumbel":
+        mcts = MCTSConfig(n_simulations=16, search="gumbel",
+                          gumbel_max_considered=8, add_noise=False,
+                          reuse_budget=12)
+    else:
+        mcts = MCTSConfig(n_simulations=24, cpuct=1.0, add_noise=True,
+                          dirichlet_alpha=0.05, dirichlet_epsilon=0.25)
+    sp = SelfPlayConfig(batch_games=32, mcts=mcts, temp_threshold=6,
+                        opening_random_moves=2)
+    counted = _CountingEnv(env)
+    out = []
+    for side in (counted, _PlainEnv(env)):
+        gk.reset_launch_counts()
+        g = torch.Generator(device=dev).manual_seed(11)
+        out.append(play_games(side, sp, make_eval_fn(), net, g, dev))
+        if side is counted:
+            calls = counted.calls
+            assert gk.launch_counts() == {
+                "game_step": calls["step"] + calls["step_safe"],
+                "game_encode": calls["encode"],
+                "game_legal_mask": calls["legal_mask"],
+                "game_terminal_value": calls["terminal_value"]}
+            assert min(calls.values()) > 0, calls
+        else:
+            assert sum(gk.launch_counts().values()) == 0
+    _assert_same(out[0], out[1], "trajectories")
+    assert int(out[0].moves_played.max()) > 8
+
+
+def test_game_kernel_wrappers_raise_on_bad_cuda_inputs():
+    dev = _card()
+    env = make_env("pente", 9, capture_planes=True)
+    states = env.init_batch(4, dev)
+    action = torch.zeros(4, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        env.step(states._replace(board=states.board.int()), action)
+    with pytest.raises(TypeError):
+        env.encode(states._replace(to_move=states.to_move.long()))
+    with pytest.raises(ValueError, match="shape"):
+        env.step(states, action[:3])
+    with pytest.raises(ValueError, match="shape"):
+        env.legal_mask(states._replace(done=states.done[:2]))
+    with pytest.raises(ValueError, match="is on"):
+        env.step(states, action.cpu())
+    with pytest.raises(ValueError, match="is on"):
+        env.encode(states._replace(captures=states.captures.cpu()))
+    big = make_env("gomoku", 23)
+    with pytest.raises(ValueError, match="at most"):
+        big.step(big.init_batch(2, dev), action[:2])
+    with pytest.raises(ValueError, match="at most"):
+        big.legal_mask(big.init_batch(2, dev))

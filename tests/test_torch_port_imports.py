@@ -76,6 +76,7 @@ def test_every_port_module_imports():
 def test_kernel_wrappers_have_no_fallback():
     for name in ("ops/tree_kernels.py", "ops/fused_net.py",
                  "ops/int8_net.py", "ops/int8_tower.py",
+                 "ops/game_kernels.py", "games/gomoku.py", "games/pente.py",
                  "tools/matmul_rate.py", "repro/width1_slice_write.py"):
         tree = ast.parse((PORT / name).read_text())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), name
