@@ -5,5 +5,5 @@
 repo's root names the cells and metrics; the files they name are found by
 name (``spec.py``).  The benchmark imports nothing of the JAX package and no
 ``jax``; ``program.py`` is its only module that imports the program, and
-``reference/`` imports nothing of it.
+``reference/`` and ``nets/`` import nothing of it.
 """

@@ -4,11 +4,12 @@
         --control-seeds 1,2,3 [--out PATH]
 
 One process sets the cell up once (as a run does), then for each seed plays
-the call a run's window would start with (call 0, its generator seeded from
-the seed) and judges it as a run judges its window: the program's readings.
+the call a run's window would start with (call 0, its generator seeded as
+``run.call_seed`` seeds it) and judges it as a run judges its window: the
+program's readings.
 For each control seed it plays the same call with the reference's net at
-the configuration's ``control_net`` (``reference/net.py``; for the int8
-configurations ``qmax`` 7, int4, the step below int8) in the program's
+the configuration's ``control_net`` (its architecture's ``make``; for the
+int8 configurations ``qmax`` 7, int4, the step below int8) in the program's
 net's place, on the program's searches, and judges that: the control's
 readings, which have to fail.  Each reading is a JSON
 line on standard output (and in ``--out``).  The benchmark's runs do not
@@ -27,13 +28,14 @@ import torch
 from benchmark import program as bprog
 from benchmark import run
 from benchmark import spec as bspec
-from benchmark.reference import net as rnet
 
-def control_eval(config, params, stats, calib, device):
-    """The reference's net at the configuration's ``control_net``, as the
-    program's eval function (``eval_fn(net, obs) -> (probs, value
+
+def control_eval(cell, params, stats, calib, device):
+    """The reference's net at the cell's configuration's ``control_net``,
+    as the program's eval function (``eval_fn(net, obs) -> (probs, value
     [B, 1])``)."""
-    net = rnet.make(params, stats, calib, device, config["control_net"])
+    net = cell["net"].make(params, stats, calib, device,
+                           cell["config"]["control_net"])
 
     def eval_fn(_net, obs):
         probs, value = net(obs)
@@ -45,7 +47,7 @@ def readings(cell, prog, game, params, stats, calib, device, seeds,
              control: bool):
     for seed in seeds:
         gen = torch.Generator(device=device).manual_seed(
-            run.call_seed(seed, 0))
+            run.call_seed(seed, 0, cell["traffic"]))
         t0 = time.perf_counter()
         traj = prog.play(gen)
         if device.type == "cuda":
@@ -86,8 +88,7 @@ def main(argv=None, device=None, root=None) -> int:
     out = open(a.out, "a") if a.out else None
     for control, which in ((False, a.seeds), (True, a.control_seeds)):
         if control:
-            prog.eval_fn = control_eval(cell["config"], params, stats, calib,
-                                        device)
+            prog.eval_fn = control_eval(cell, params, stats, calib, device)
         for row in readings(cell, prog, game, params, stats, calib, device,
                             seeds(which), control):
             line = json.dumps(dict(row, workload=a.workload))

@@ -1,12 +1,14 @@
 """The system under test: lockstep self-play of ``alphazero_gomoku_tpu_torch``.
 
 The only module of the benchmark that imports the program.  It builds the
-game, the int8 tower net (``models.make_inference``) and the self-play
-settings of a cell, and calls ``selfplay.runner.play_games``, the entry the
-window drives.  For the traced run, :class:`Probe` hands the program
-wrapped objects (the eval function, a ``TreeOps`` of wrapped kernels and a
-proxy of the env) that open the ``bench.*`` ranges ``trace.py`` attributes
-by, and starts and stops the profiler around one ply of the first call.
+game, the net (:func:`net_config` of the configuration file, in the
+inference mode its ``precision`` names: ``models.make_inference``) and
+the self-play settings of a cell, and calls ``selfplay.runner.play_games``,
+the entry the window drives.  For the traced run, :class:`Probe` hands the
+program wrapped objects (the eval function, a ``TreeOps`` of wrapped
+kernels and a proxy of the env) that open the ``bench.*`` ranges
+``trace.py`` attributes by, and starts and stops the profiler around one
+ply of the first call.
 """
 
 from __future__ import annotations
@@ -115,6 +117,26 @@ class _RangedEnv:
         return self._wrapped[name]
 
 
+def net_config(config: Dict):
+    """The program's net configuration of a configuration file: the port's
+    ``models.net_config_of(config)`` where the port has one; else its
+    residual tower's ``NetConfig``, the one architecture (``resnet``) such
+    a port runs, of the shape keys that ``benchmark/nets/resnet.py``
+    lists."""
+    from alphazero_gomoku_tpu_torch import models
+
+    from benchmark import spec
+    if hasattr(models, "net_config_of"):
+        return models.net_config_of(config)
+    if spec.arch(config) != "resnet":
+        raise ValueError(f"architecture {spec.arch(config)!r}: the program "
+                         "runs ['resnet']")
+    size = config["board_size"]
+    return models.NetConfig(board_size=size, action_size=size * size,
+                            in_channels=config["in_channels"],
+                            **{k: config[k] for k in spec.net("resnet").KEYS})
+
+
 class Program:
     """A cell's self-play on the card: ``play(generator)`` runs one call."""
 
@@ -122,7 +144,6 @@ class Program:
                  device):
         from alphazero_gomoku_tpu_torch.games import make_env
         from alphazero_gomoku_tpu_torch.models import make_inference
-        from alphazero_gomoku_tpu_torch.models.resnet import NetConfig
         from alphazero_gomoku_tpu_torch.ops.tree_kernels import KERNELS
         from alphazero_gomoku_tpu_torch.search.tree import MCTSConfig
         from alphazero_gomoku_tpu_torch.selfplay.runner import (
@@ -135,13 +156,8 @@ class Program:
         size = config["board_size"]
         self.env = make_env(config["game"], size,
                             capture_planes=config["in_channels"] == 5)
-        net_cfg = NetConfig(board_size=size, action_size=size * size,
-                            in_channels=config["in_channels"],
-                            n_res_blocks=config["n_res_blocks"],
-                            channels=config["channels"],
-                            value_hidden=config["value_hidden"])
         self.eval_fn, self.bundle = make_inference(
-            config["precision"], net_cfg, params, stats,
+            config["precision"], net_config(config), params, stats,
             device=device, calib_obs=calib)
         s = traffic["search"]
         mcts = MCTSConfig(

@@ -7,14 +7,24 @@ from the root of a checkout.  One process, on one card:
 
   1. set-up (``setup_s``): the CUDA context, the program's kernels (built
      by ``nvcc`` into ``alphazero_gomoku_tpu_torch/build/`` at first use,
-     reused after), the checkpoint read and checked against its sha256, the
-     int8 calibration, and a warm-up call of two plies at the cell's shapes;
+     reused after), the weights (a checkpoint read and checked against its
+     sha256, or drawn from the configuration's ``weights_seed`` by its
+     architecture's ``init``), the int8 calibration, and a warm-up call of
+     two plies at the cell's shapes;
   2. the window: whole calls of ``selfplay.runner.play_games`` back to back,
      each from empty boards with a generator on the card seeded from
-     (``--seed``, call index), until ``--seconds`` have passed since the
-     first began; ``selfplay_moves_per_s`` is the live games' moves of all
-     calls over the time from the first call's start to the last call's
-     synchronize.  With ``--trace 1`` one ply of the first call is profiled
+     (``--seed``, call index), or, where the traffic names a ``game_pool``,
+     from one of that many fixed calls in the seed's order
+     (:func:`call_seed`), until ``--seconds`` have passed since the first
+     began; ``selfplay_moves_per_s`` is the live games' moves of all calls
+     over the time from the first call's start to the last call's
+     synchronize.  In a cell that reports ``selfplay_card_us_per_search``
+     the whole window runs under a profiler of the card's operations
+     alone, and that metric is the union of their intervals
+     (``trace.card_busy_ns``), in microseconds, over the window's
+     searches: the lanes times the plies each call ran (a call searches
+     every lane at every ply, a finished game's too).  With ``--trace 1``
+     one ply of the first call is profiled
      and the per-layer metrics are read from it (``trace.py``,
      ``benchmark/metrics/``);
   3. the check: every record of every call replayed with the reference's
@@ -47,6 +57,8 @@ import sys  # noqa: E402
 from typing import Dict, Iterable, List, Optional  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "alphazero_gomoku_tpu")
+# the end-to-end metric read from a profile of the whole window
+CARD_TIME = "selfplay_card_us_per_search"
 
 
 def forbidden_modules(names: Iterable[str]) -> List[str]:
@@ -56,8 +68,21 @@ def forbidden_modules(names: Iterable[str]) -> List[str]:
                   & set(FORBIDDEN))
 
 
-def call_seed(seed: int, call: int) -> int:
-    return (int(seed) * 1_000_003 + call) % (1 << 63)
+POOL_SEED = 20_260_000
+
+
+def call_seed(seed: int, call: int, traffic: Optional[Dict] = None) -> int:
+    """The generator seed of a run's call ``call``: drawn from (``seed``,
+    ``call``); where the traffic names a ``game_pool`` of P, the seed of
+    one of P fixed calls, every seed playing all P, in an order of its own
+    (and then again in that order), so that every seed does one amount of
+    work."""
+    pool = (traffic or {}).get("game_pool")
+    if not pool:
+        return (int(seed) * 1_000_003 + call) % (1 << 63)
+    order = list(range(pool))
+    random.Random(int(seed)).shuffle(order)
+    return call_seed(POOL_SEED, order[call % pool])
 
 
 def check_sample(seed: int, n_calls: int, batch: int, k: int,
@@ -109,7 +134,6 @@ def compare(spec: Dict, game, records: List[Dict], seed: int, params,
     """The reference's readings of the window's calls."""
     import torch
 
-    from benchmark.reference import net as rnet
     from benchmark.reference import replay
     from benchmark.reference import search as rs
 
@@ -135,9 +159,10 @@ def compare(spec: Dict, game, records: List[Dict], seed: int, params,
     moves = [rec["moves_played"].tolist() for rec in records]
     call, lanes = check_sample(seed, len(records), sp.batch,
                                spec["checks"]["lanes_compared"], moves)
-    eval_ref = rnet.make(params, stats, calib, device,
-                         spec["config"]["reference_net"])
-    gen = torch.Generator(device=device).manual_seed(call_seed(seed, call))
+    eval_ref = spec["net"].make(params, stats, calib, device,
+                                spec["config"]["reference_net"])
+    gen = torch.Generator(device=device).manual_seed(
+        call_seed(seed, call, tr))
     gaps = replay.search_gaps(game, cfg, sp, eval_ref, records[call],
                               gen, lanes)
     n = max(1, len(gaps["tv"]))
@@ -156,9 +181,11 @@ def compare(spec: Dict, game, records: List[Dict], seed: int, params,
 
 
 def prepare(cell: Dict, device, root: str):
-    """The set-up: the weights read and checked, the calibration boards,
-    the program's net and self-play, and a warm-up call of two plies.
-    Returns ``(program, reference game, params, batch_stats, calib)``."""
+    """The set-up: the weights (the checkpoint read and checked, or drawn
+    from ``weights_seed``: the same arrays go to the program and the
+    reference), the calibration boards, the program's net and self-play,
+    and a warm-up call of two plies.  Returns ``(program, reference game,
+    params, batch_stats, calib)``."""
     import torch
 
     from benchmark import calib as bcalib
@@ -167,8 +194,11 @@ def prepare(cell: Dict, device, root: str):
     from benchmark.reference.games import Game
 
     cfg, tr = cell["config"], cell["traffic"]
-    params, stats, _ = checkpoint.load(os.path.join(root, cfg["checkpoint"]),
-                                       cfg["sha256"])
+    if "weights_seed" in cfg:
+        params, stats = cell["net"].init(cfg, cfg["weights_seed"], device)
+    else:
+        params, stats, _ = checkpoint.load(
+            os.path.join(root, cfg["checkpoint"]), cfg["sha256"])
     game = Game(cfg["game"], cfg["board_size"],
                 capture_planes=cfg["in_channels"] == 5)
     c = cfg["calib"]
@@ -227,13 +257,18 @@ def main(argv=None, device=None, root: Optional[str] = None) -> int:
     # the window
     probe = bprog.Probe(tr["trace_ply"]) if args.trace else None
     trajs, spans = [], []
+    setup_s = time.perf_counter() - T0
+    card = None
+    if on_card and not args.trace and CARD_TIME in {
+            m["name"] for m in cell["end_to_end"]}:
+        card = trace.card_profiler()
+        card.start()
     start = time.perf_counter()
     cpu0 = time.thread_time()
-    setup_s = start - T0
     while True:
         i = len(trajs)
         gen = torch.Generator(device=device).manual_seed(
-            call_seed(args.seed, i))
+            call_seed(args.seed, i, tr))
         c0 = time.perf_counter()
         trajs.append(prog.play(gen, probe=probe if i == 0 else None))
         sync()
@@ -245,6 +280,14 @@ def main(argv=None, device=None, root: Optional[str] = None) -> int:
             break
     window_s = spans[-1][1] - start
     cpu_s = time.thread_time() - cpu0
+    card_ns = None
+    if card is not None:
+        t0 = time.perf_counter()
+        card.stop()
+        card_ns, card_ops = trace.card_busy_ns(card)
+        del card
+        log(f"[card] {card_ops} device operations in the window, busy "
+            f"{card_ns / 1e9:.6f} s; read in {time.perf_counter() - t0:.1f} s")
     plies = tr["plies_per_call"]
     call_moves = [int(torch.clamp(t.moves_played, max=plies).sum())
                   for t in trajs]
@@ -271,7 +314,7 @@ def main(argv=None, device=None, root: Optional[str] = None) -> int:
                "calls": [{"moves": m, "seconds": b - a, "profiled": i == 0}
                          for i, (m, (a, b)) in
                          enumerate(zip(call_moves, spans))],
-               "config": cfg, "traffic": tr}
+               "config": cfg, "net": cell["net"], "traffic": tr}
         for m in cell["per_layer"]:
             v = bspec.metric_reader(m["name"], root)(ctx)
             if v is not None:
@@ -289,9 +332,15 @@ def main(argv=None, device=None, root: Optional[str] = None) -> int:
     else:
         values = {"selfplay_moves_per_s": moves / window_s,
                   "setup_s": setup_s}
+        if card_ns is not None:
+            # a call runs until its longest game ends or the ply cap
+            searches = sum(tr["lanes"] * min(plies, int(t.moves_played.max()))
+                           for t in trajs)
+            values[CARD_TIME] = card_ns / 1e3 / searches
         for m in cell["end_to_end"]:
-            metrics[m["name"]] = {"value": values[m["name"]],
-                                  "unit": m["unit"]}
+            if m["name"] in values:
+                metrics[m["name"]] = {"value": values[m["name"]],
+                                      "unit": m["unit"]}
 
     # the check, after the program's net is gone
     prog.free()

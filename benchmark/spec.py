@@ -3,12 +3,22 @@
 Everything of one configuration, traffic mix, cell or per-layer metric sits
 in a file of its own, found by its name:
 
-  - ``benchmark/configs/<config>.json``: the net, its weights (path and
-    sha256), its calibration boards, and its precision as data: the
+  - ``benchmark/configs/<config>.json``: the net (its ``arch``, by default
+    ``resnet``, and the shape keys that architecture lists), its weights
+    (a checkpoint's path and sha256, or a ``weights_seed``), its
+    calibration boards, and its precision as data: the
     program's inference mode (``precision``), the peak that bounds it
     (``peak``, a key of ``yardstick.PEAK_OPS``), and the reference's net
-    and the control's (``reference_net``, ``control_net``: ``{"qmax": q}``
-    quantized or ``{"dtype": d}`` float, ``reference/net.make``);
+    and the control's (``reference_net``, ``control_net``: for ``resnet``
+    ``{"qmax": q}`` quantized or ``{"dtype": d}`` float,
+    ``reference/net.make``);
+  - ``benchmark/nets/<arch>.py``: an architecture, importing nothing of the
+    program: ``KEYS`` (its shape keys), ``init(config, seed, device)``
+    (seeded weights in the checkpoint's layout), ``make(params, stats,
+    calib, device, spec)`` (the reference's eval function at a
+    ``reference_net`` or ``control_net``), and ``flops_per_eval(config)``
+    and ``call_least_s(batch, config)`` (what the metric readers divide
+    by);
   - ``benchmark/traffic/<traffic>.json``: the self-play a call plays
     (lanes, plies, search settings, the traced ply);
   - ``benchmark/checks/<cell>.json``: what the comparison samples and the
@@ -16,8 +26,8 @@ in a file of its own, found by its name:
   - ``benchmark/metrics/<metric>.py``: a ``read(ctx)`` that returns the
     per-layer metric, or None where it finds nothing to read.
 
-A later change adds a configuration, a traffic mix, a cell or a metric by
-adding files and entries, and edits none.
+A later change adds an architecture, a configuration, a traffic mix, a
+cell or a metric by adding files and entries, and edits none.
 """
 
 from __future__ import annotations
@@ -25,15 +35,16 @@ from __future__ import annotations
 import importlib.util
 import json
 import os
+import re
 from typing import Dict
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 
 CONFIG_KEYS = ("name", "source", "game", "board_size", "in_channels",
-               "n_res_blocks", "channels", "value_hidden", "precision",
-               "peak", "reference_net", "control_net", "checkpoint",
-               "sha256", "calib")
+               "precision", "peak", "reference_net", "control_net", "calib")
+DEFAULT_ARCH = "resnet"
+NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")
 TRAFFIC_KEYS = ("lanes", "plies_per_call", "opening_random_moves",
                 "temp_threshold", "trace_ply", "search")
 SEARCH_KEYS = ("kind", "n_simulations", "cpuct", "add_noise",
@@ -60,15 +71,48 @@ def benchmark(root: str = ROOT) -> Dict:
     return _json(os.path.join(root, "BENCHMARK.json"))
 
 
+def _module(path: str, name: str):
+    spec = importlib.util.spec_from_file_location(
+        name.replace(".", "_").replace("-", "_"), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def arch(config: Dict) -> str:
+    """A configuration's architecture: its ``arch``, by default
+    ``resnet``."""
+    return config.get("arch", DEFAULT_ARCH)
+
+
+def net(name: str, root: str = ROOT):
+    """The module ``benchmark/nets/<name>.py``."""
+    path = os.path.join(root, "benchmark", "nets", name + ".py")
+    if not NAME.fullmatch(name) or not os.path.isfile(path):
+        raise ValueError(f"architecture {name!r}: no file {path}")
+    return _module(path, "benchmark_net_" + name)
+
+
 def config(name: str, root: str = ROOT) -> Dict:
     c = _json(os.path.join(root, "benchmark", "configs", name + ".json"))
     _need(c, CONFIG_KEYS, f"configuration {name}")
     if c["name"] != name:
         raise ValueError(f"configuration file {name}.json names {c['name']}")
+    _need(c, net(arch(c), root).KEYS,
+          f"configuration {name} (architecture {arch(c)})")
     for k in ("reference_net", "control_net"):
         if len(c[k]) != 1 or not set(c[k]) <= {"qmax", "dtype"}:
             raise ValueError(f"configuration {name}: {k} is one of "
                              "{'qmax': q} and {'dtype': d}")
+    pinned = {"checkpoint", "sha256"} & set(c)
+    if "weights_seed" in c:
+        one_source = not pinned and type(c["weights_seed"]) is int
+    else:
+        one_source = len(pinned) == 2
+    if not one_source:
+        raise ValueError(f"configuration {name}: its weights are a "
+                         "checkpoint and its sha256, or an int "
+                         "weights_seed, and not both")
     return c
 
 
@@ -91,16 +135,13 @@ def checks(cell: str, root: str = ROOT) -> Dict:
 def metric_reader(name: str, root: str = ROOT):
     """The ``read`` function of ``benchmark/metrics/<name>.py``."""
     path = os.path.join(root, "benchmark", "metrics", name + ".py")
-    spec = importlib.util.spec_from_file_location(
-        "benchmark_metric_" + name.replace(".", "_").replace("-", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _module(path, "benchmark_metric_" + name).read
 
 
 def cell(name: str, root: str = ROOT) -> Dict:
-    """A cell of ``BENCHMARK.json`` with its configuration, traffic,
-    checks, and the metrics it reports (end-to-end and per-layer)."""
+    """A cell of ``BENCHMARK.json`` with its configuration, its
+    architecture's module (``net``), traffic, checks, and the metrics it
+    reports (end-to-end and per-layer)."""
     bench = benchmark(root)
     cells = {w["name"]: w for w in bench["workloads"]}
     if name not in cells:
@@ -110,9 +151,11 @@ def cell(name: str, root: str = ROOT) -> Dict:
     def reports(m):
         return "workloads" not in m or name in m["workloads"]
 
+    conf = config(w["config"], root)
     return {
         "workload": w,
-        "config": config(w["config"], root),
+        "config": conf,
+        "net": net(arch(conf), root),
         "traffic": traffic(w["traffic"], root),
         "checks": checks(name, root),
         "end_to_end": [m for m in bench["end_to_end"] if reports(m)],

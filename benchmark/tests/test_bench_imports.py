@@ -29,7 +29,7 @@ def _imports(path):
         if isinstance(node, ast.Import):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.module:
-            yield node.module
+            yield from (f"{node.module}.{a.name}" for a in node.names)
 
 
 def _files(*parts):
@@ -55,6 +55,17 @@ def test_reference_imports_nothing_of_the_program(path):
                if n.split(".")[0] == "benchmark")
 
 
+@pytest.mark.parametrize("path", sorted(_files("nets")))
+def test_nets_import_nothing_of_the_program(path):
+    """An architecture's module imports the reference and the yardstick,
+    and nothing of the program."""
+    tops = {n.split(".")[0] for n in _imports(path)}
+    assert PORT not in tops
+    assert tops <= {"__future__", "typing", "numpy", "torch", "benchmark"}
+    assert all(n.startswith(("benchmark.reference.", "benchmark.yardstick"))
+               for n in _imports(path) if n.split(".")[0] == "benchmark")
+
+
 def test_only_program_and_tests_import_the_program():
     for path in _files():
         rel = os.path.relpath(path, HERE)
@@ -63,8 +74,9 @@ def test_only_program_and_tests_import_the_program():
         assert PORT not in {n.split(".")[0] for n in _imports(path)}, rel
 
 
-def test_reference_loads_alone():
+def test_reference_and_nets_load_alone():
     code = ("import sys, benchmark.reference.replay, benchmark.reference.net;"
+            "from benchmark import spec; spec.net('resnet');"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'alphazero_gomoku_tpu', "
             f"'{PORT}'));"

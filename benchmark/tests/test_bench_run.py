@@ -43,6 +43,42 @@ def test_sound_run_is_correct(tmp_path, capsys, game, search, reuse):
         assert v["value"] <= v["limit"], k
 
 
+def test_card_time_cell_is_correct_with_a_game_pool(tmp_path, capsys):
+    """A cell like the Pente one: its calls come from a game pool, which
+    the check seeds alike; its end-to-end metric besides set-up is read
+    from the card's profile, so that on the CPU set-up alone is left."""
+    root = tiny.make_root(tmp_path, game="pente", search="gumbel", reuse=4,
+                          like="pente-gumbel64-reuse48-b128", game_pool=3)
+    assert {m["name"] for m in spec.cell("tiny", root)["end_to_end"]} == {
+        "setup_s", run.CARD_TIME}
+    assert run.main(ARGS, device="cpu", root=root) == 0
+    out = _result(capsys)
+    assert out["correct"] is True and out["failed"] == 0, out["checks"]
+    assert set(out["metrics"]) == {"setup_s"}
+
+
+def test_game_pool_gives_every_seed_the_same_calls():
+    tr = {"game_pool": 5}
+    a = [run.call_seed(2 ** 31 + 1, i, tr) for i in range(10)]
+    b = [run.call_seed(7, i, tr) for i in range(10)]
+    assert sorted(a[:5]) == sorted(b[:5]) and len(set(a[:5])) == 5
+    assert a[5:] == a[:5] and a != b
+    assert run.call_seed(7, 3) == run.call_seed(7, 3, {}) == 7 * 1_000_003 + 3
+
+
+def test_seeded_weights_run_is_correct(tmp_path, capsys):
+    """A configuration whose weights are a ``weights_seed``: the program
+    and the reference get the same arrays of ``nets/resnet.py``'s
+    ``init``."""
+    root = tiny.make_root(tmp_path, weights_seed=2 ** 31 + 7)
+    assert "checkpoint" not in spec.config("tiny-net", root)
+    assert run.main(ARGS, device="cpu", root=root) == 0
+    out = _result(capsys)
+    assert out["correct"] is True and out["failed"] == 0, out["checks"]
+    for k, v in out["checks"].items():
+        assert v["value"] <= v["limit"], k
+
+
 def _runner():
     from alphazero_gomoku_tpu_torch.selfplay import runner
     return runner
@@ -102,8 +138,7 @@ def test_int4_control_is_not_correct(tmp_path, game, search, reuse):
     prog, game_, params, stats, calib = run.prepare(cell, dev, root)
     sound = list(control.readings(cell, prog, game_, params, stats, calib,
                                   dev, [3], control=False))
-    prog.eval_fn = control.control_eval(cell["config"], params, stats,
-                                        calib, dev)
+    prog.eval_fn = control.control_eval(cell, params, stats, calib, dev)
     ctl = list(control.readings(cell, prog, game_, params, stats, calib, dev,
                                 [3, 4, 5], control=True))
     assert sound[0]["correct_at_limits"] is True
@@ -127,8 +162,7 @@ def test_float_configuration_is_files_alone(tmp_path, capsys):
     cell = spec.cell("tiny", root)
     dev = torch.device("cpu")
     prog, game_, params, stats, calib = run.prepare(cell, dev, root)
-    prog.eval_fn = control.control_eval(cell["config"], params, stats,
-                                        calib, dev)
+    prog.eval_fn = control.control_eval(cell, params, stats, calib, dev)
     ctl = list(control.readings(cell, prog, game_, params, stats, calib, dev,
                                 [3, 4], control=True))
     assert all(r["correct_at_limits"] is False for r in ctl), ctl
@@ -158,8 +192,12 @@ def test_benchmark_files_alone_give_no_result(tmp_path):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("trace", ["0", "1"])
-def test_small_run_on_the_card(tmp_path, capsys, trace):
+@pytest.mark.parametrize("trace,weights_seed,like", [
+    ("0", None, "gomoku-puct400-b128"), ("1", None, "gomoku-puct400-b128"),
+    ("0", 2 ** 31 + 7, "gomoku-puct400-b128"),
+    ("0", None, "pente-gumbel64-reuse48-b128"),
+    ("1", None, "pente-gumbel64-reuse48-b128")])
+def test_small_run_on_the_card(tmp_path, capsys, trace, weights_seed, like):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     # the committed cells' limits: the kernels and the reference's library
@@ -167,7 +205,8 @@ def test_small_run_on_the_card(tmp_path, capsys, trace):
     limits = spec.checks("gomoku-gumbel64-reuse48-b128")["limits"]
     root = tiny.make_root(tmp_path, game="pente", search="gumbel", reuse=4,
                           size=9, lanes=16, plies=8, sims=16, channels=32,
-                          limits=limits)
+                          limits=limits, weights_seed=weights_seed,
+                          like=like)
     args = ARGS[:-1] + [trace]
     assert run.main(args, root=root) == 0
     out = _result(capsys)
@@ -176,3 +215,11 @@ def test_small_run_on_the_card(tmp_path, capsys, trace):
     if trace == "1":
         assert out["device"]["busy_s"] > 0
         assert "breakdown" in out
+        listed = {m["name"] for m in spec.cell("tiny", root)["per_layer"]}
+        assert set(out["metrics"]) <= listed
+        assert "device_idle_pct." + ("card" if "pente" in like
+                                     else "selfplay") in out["metrics"]
+    else:
+        names = {m["name"] for m in spec.cell("tiny", root)["end_to_end"]}
+        assert set(out["metrics"]) == names
+        assert all(v["value"] > 0 for v in out["metrics"].values())

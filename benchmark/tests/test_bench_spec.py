@@ -1,16 +1,21 @@
 """BENCHMARK.json and the files it names: they load, they keep to the
-format and limits the file must meet, and a new configuration, traffic
-mix, cell or metric is picked up by adding files alone."""
+format and limits the file must meet, and a new architecture,
+configuration, traffic mix, cell or metric is picked up by adding files
+alone."""
 
 import json
 import os
 import re
 import shutil
 
+import numpy as np
 import pytest
+import torch
 
-from benchmark import checkpoint, spec
+from benchmark import checkpoint, program, run, spec
 from benchmark.spec import HERE, ROOT
+from benchmark.tests import tiny
+from benchmark.trace import Slice
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -75,11 +80,14 @@ def test_cell_loads(cell):
     assert c["traffic"]["trace_ply"] >= 1
     limits = c["checks"]["limits"]
     assert all(v is not None for v in limits.values())
-    assert {m["name"] for m in c["end_to_end"]} == {"setup_s",
-                                                    "selfplay_moves_per_s"}
+    # set-up and one more end-to-end metric, which every per-layer metric
+    # of the cell moves
+    names = [m["name"] for m in c["end_to_end"]]
+    assert "setup_s" in names and len(names) == 2
     assert len(c["per_layer"]) >= 1
     for m in c["per_layer"]:
         assert callable(spec.metric_reader(m["name"]))
+        assert m["moves"] in names
 
 
 @pytest.mark.parametrize("name", [c["name"] for c in
@@ -100,6 +108,82 @@ def test_config_pins_its_checkpoint(name):
     assert len(params["blocks"]) == c["n_res_blocks"]
 
 
+def _leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], f"{path}/{k}")
+    elif isinstance(tree, list):
+        for i, x in enumerate(tree):
+            yield from _leaves(x, f"{path}/{i}")
+    else:
+        yield path, np.asarray(tree)
+
+
+@pytest.mark.parametrize("name", [c["name"] for c in
+                                  spec.benchmark()["configs"]])
+def test_seeded_weights_are_the_checkpoints_layout(name):
+    """``nets/resnet.py``'s ``init``: the checkpoint's arrays, float32,
+    the same for a seed and other for another, batch norm not the
+    identity."""
+    c = spec.config(name)
+    init = spec.net("resnet").init
+    params, stats = init(c, 2 ** 31 + 3)
+    again = init(c, 2 ** 31 + 3)
+    other = init(c, 2 ** 31 + 4)
+    shipped = checkpoint.load(os.path.join(ROOT, c["checkpoint"]),
+                              c["sha256"])
+    for i, tree in enumerate((params, stats)):
+        got = dict(_leaves(tree))
+        want = dict(_leaves(shipped[i]))
+        assert sorted(got) == sorted(want)
+        for k, v in got.items():
+            assert v.dtype == np.float32 and v.shape == want[k].shape, k
+            assert np.array_equal(v, dict(_leaves(again[i]))[k]), k
+            if not k.endswith("/b"):
+                assert not np.array_equal(v, dict(_leaves(other[i]))[k]), k
+    for bn, st in ((params["stem_bn"], stats["stem_bn"]),
+                   (params["value_bn"], stats["value_bn"])):
+        assert (bn["scale"] != 1).all() and (bn["bias"] != 0).all()
+        assert (st["mean"] != 0).all() and (st["var"] > 1).all()
+
+
+def _copy(root):
+    shutil.copytree(HERE, root / "benchmark",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(os.path.join(ROOT, "BENCHMARK.json"), root)
+
+
+def _write_config(root, conf):
+    (root / "benchmark" / "configs" / (conf["name"] + ".json")).write_text(
+        json.dumps(conf))
+
+
+@pytest.mark.parametrize("change,match", [
+    ({"arch": "nosuch"}, "benchmark/nets/nosuch.py"),
+    ({"arch": "../reference/net"}, "no file"),
+    ({"n_res_blocks": None}, "n_res_blocks"),
+    ({"sha256": None}, "weights"),
+    ({"weights_seed": 5}, "weights"),
+    ({"checkpoint": None, "sha256": None}, "weights"),
+    ({"checkpoint": None, "sha256": None, "weights_seed": 5.0}, "weights"),
+])
+def test_config_is_refused(tmp_path, change, match):
+    """An unknown architecture names the file it lacks; a configuration
+    without its architecture's keys, or without exactly one source of
+    weights, is refused."""
+    _copy(tmp_path)
+    conf = spec.config("gomoku15-6x128-int8t")
+    conf["name"] = "changed"
+    for k, v in change.items():
+        if v is None:
+            del conf[k]
+        else:
+            conf[k] = v
+    _write_config(tmp_path, conf)
+    with pytest.raises(ValueError, match=re.escape(match)):
+        spec.config("changed", str(tmp_path))
+
+
 def test_wrong_checkpoint_is_refused():
     c = spec.config("gomoku15-6x128-int8t")
     with pytest.raises(ValueError, match="sha256"):
@@ -115,10 +199,47 @@ def test_every_config_and_metric_is_used():
         assert set(m.get("workloads", cells)) <= cells
 
 
+TOY = """
+import numpy as np
+
+KEYS = ("toy_width",)
+
+
+def init(config, seed, device="cpu"):
+    return {"w": np.full(config["toy_width"], seed, np.float32)}, {}
+
+
+def make(params, stats, calib, device, spec):
+    raise LookupError(f"the toy reference at {spec}")
+
+
+def flops_per_eval(config):
+    return 1000.0 * config["toy_width"]
+
+
+def call_least_s(batch, config):
+    return 1e-9 * batch * config["toy_width"]
+"""
+
+
+def _toy_records(tmp_path):
+    """The tiny cell, its records of one call, and what ``run.compare``
+    takes beside them."""
+    root = tiny.make_root(tmp_path)
+    cell = spec.cell("tiny", root)
+    dev = torch.device("cpu")
+    prog, game, params, stats, calib = run.prepare(cell, dev, root)
+    traj = prog.play(torch.Generator(device=dev).manual_seed(1))
+    return cell, game, [program.records(traj)], params, stats, calib
+
+
 def test_additions_need_no_edit(tmp_path):
-    """A copy of the checkout takes a new configuration, traffic mix, cell
-    and per-layer metric from new files and entries alone."""
-    root = tmp_path
+    """A copy of the checkout takes a new architecture, configuration,
+    traffic mix, cell and per-layer metric from new files and entries
+    alone: the architecture's keys are checked, the metric readers divide
+    by its counts, and the check's reference is its ``make``."""
+    root = tmp_path / "checkout"
+    root.mkdir()
     shutil.copytree(HERE, root / "benchmark",
                     ignore=shutil.ignore_patterns("__pycache__"))
     b = _bench()
@@ -150,9 +271,8 @@ def test_additions_need_no_edit(tmp_path):
     c = spec.cell("new-cell", str(root))
     assert c["traffic"]["lanes"] == 256
     assert c["config"]["name"] == "gomoku15-6x128-int8t-copy"
-    # the metrics with no ``workloads`` list, and the one listing it
-    assert [m["name"] for m in c["per_layer"]] == [
-        m["name"] for m in b["per_layer"]]
+    # the metrics with no ``workloads`` list (none), and the one listing it
+    assert [m["name"] for m in c["per_layer"]] == ["sims_in_slice.selfplay"]
     old = spec.cell("gomoku-puct400-b128", str(root))
     assert "sims_in_slice.selfplay" not in [m["name"]
                                             for m in old["per_layer"]]
@@ -161,3 +281,47 @@ def test_additions_need_no_edit(tmp_path):
     # the cells already there are as they were
     assert spec.cell("gomoku-puct400-b128", str(root))["traffic"] \
         == spec.traffic("puct400-b128")
+
+    # an architecture: its module, a configuration naming it, a cell
+    (root / "benchmark" / "nets" / "toy.py").write_text(TOY)
+    toy = {k: v for k, v in spec.config("gomoku15-6x128-int8t").items()
+           if k not in ("n_res_blocks", "channels", "value_hidden",
+                        "checkpoint", "sha256")}
+    toy.update(name="toy-net", arch="toy", weights_seed=11)
+    _write_config(root, toy)
+    with pytest.raises(ValueError, match="toy_width"):
+        spec.config("toy-net", str(root))
+    toy["toy_width"] = 3
+    _write_config(root, toy)
+    (root / "benchmark" / "checks" / "toy-cell.json").write_text(
+        json.dumps(spec.checks("gomoku-puct400-b128")))
+    b["configs"].append({"name": "toy-net", "source": "x",
+                         "file": "benchmark/configs/toy-net.json",
+                         "reduced": [], "why": "x"})
+    b["workloads"].append({"name": "toy-cell", "config": "toy-net",
+                           "traffic": "puct400-b128", "chips": 1,
+                           "why": "x"})
+    (root / "BENCHMARK.json").write_text(json.dumps(b))
+    c = spec.cell("toy-cell", str(root))
+    assert c["net"].KEYS == ("toy_width",)
+    assert c["net"].init(c["config"], 11)[0]["w"].tolist() == [11.0] * 3
+    ctx = {"slice": Slice(0, 100, [("net", 0, 50)], {1: 10},
+                          [("conv", 20, 40, 1)]),
+           "net_calls": [128, 64], "sims": 4,
+           "calls": [{"moves": 10, "seconds": 1.0, "profiled": True},
+                     {"moves": 600, "seconds": 2.0, "profiled": False}],
+           "config": c["config"], "net": c["net"], "traffic": c["traffic"]}
+
+    def read(metric):
+        return spec.metric_reader(metric, str(root))(ctx)
+
+    assert read("net_roofline_pct.selfplay") == pytest.approx(
+        100 * 1e-9 * 192 * 3 * 1e9 / 20)
+    assert read("step_mfu_pct.selfplay") == pytest.approx(
+        100 * 600 * 400 * 3000.0 / 2.0 / 1978.9e12)
+    # the check's reference is the architecture's ``make``
+    cell, game, records, params, stats, calib = _toy_records(
+        tmp_path / "tiny")
+    with pytest.raises(LookupError, match="the toy reference at"):
+        run.compare(dict(cell, net=c["net"]), game, records, 1, params,
+                    stats, calib, torch.device("cpu"))

@@ -12,6 +12,21 @@ def test_flops_of_the_6x128_net(cin, flops):
     assert yardstick.net_flops_per_eval(15, 6, 128, cin) == flops
 
 
+@pytest.mark.parametrize("config", [c["name"] for c in
+                                    spec.benchmark()["configs"]])
+@pytest.mark.parametrize("batch", [1, 8, 128, 1024])
+def test_resnet_counts_are_the_yardsticks(config, batch):
+    """``nets/resnet.py`` gives the readers ``yardstick``'s numbers, bit for
+    bit."""
+    c = spec.config(config)
+    net = spec.net("resnet")
+    assert net.flops_per_eval(c) == yardstick.net_flops_per_eval(
+        c["board_size"], c["n_res_blocks"], c["channels"], c["in_channels"])
+    assert net.call_least_s(batch, c) == yardstick.net_call_least_s(
+        batch, c["board_size"], c["n_res_blocks"], c["channels"],
+        c["in_channels"], c["peak"], c["value_hidden"])
+
+
 def test_busy_is_the_union():
     spans = [(0, 10), (5, 12), (20, 30), (21, 22), (40, 41)]
     assert yardstick.busy_ns(spans) == 12 + 10 + 1
@@ -78,7 +93,8 @@ def _ctx(sl):
             "calls": [{"moves": 10, "seconds": 9.0, "profiled": True},
                       {"moves": 6000, "seconds": 8.0, "profiled": False},
                       {"moves": 6144, "seconds": 8.5, "profiled": False}],
-            "config": cfg, "traffic": spec.traffic("gumbel64-reuse48-b128")}
+            "config": cfg, "net": spec.net("resnet"),
+            "traffic": spec.traffic("gumbel64-reuse48-b128")}
 
 
 def test_metric_readers_on_a_synthetic_slice():

@@ -110,6 +110,26 @@ class Slice:
         return {"device_ops": top(by_name), "idle_gaps": top(idle)}
 
 
+def card_profiler():
+    """A profiler of the card's operations alone (no host events), for a
+    whole window."""
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CUDA])
+
+
+def card_busy_ns(prof) -> Tuple[float, int]:
+    """The union of the intervals of every device operation (kernel, copy
+    or set) a stopped profiler recorded, in ns, and their number."""
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = []
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == cuda and not ev.is_user_annotation():
+            s = ev.start_ns()
+            spans.append((s, s + ev.duration_ns()))
+    return busy_ns(spans), len(spans)
+
+
 def from_profiler(prof) -> Slice:
     """The slice a stopped ``torch.profiler.profile`` recorded."""
     import torch
