@@ -26,6 +26,7 @@ import torch
 
 from alphazero_gomoku_tpu_torch.device import resolve_device
 from alphazero_gomoku_tpu_torch.models import checkpoint as ckpt
+from alphazero_gomoku_tpu_torch.models import nbt
 from alphazero_gomoku_tpu_torch.models.losses import alphazero_loss
 from alphazero_gomoku_tpu_torch.models.resnet import (
     NetConfig,
@@ -102,9 +103,39 @@ def fit_batch_stats(cfg: NetConfig, params: Params, batch_stats: Params,
 
 
 INFERENCE_MODES = ("f32", "bf16", "fused", "int8", "int8t")
+# the modes of KataGo's nested-bottleneck net (models/nbt.py)
+NBT_INFERENCE_MODES = ("f32", "bf16")
+# the architectures a configuration may name, by its ``arch`` key
+ARCHITECTURES = ("resnet", "katago_nbt")
+NBT_KEYS = {"n_blocks": "n_blocks", "trunk_channels": "trunk",
+            "mid_channels": "mid", "gpool_channels": "gpool",
+            "gpool_blocks": "gpool_blocks", "p1_channels": "p1",
+            "g1_channels": "g1", "v1_channels": "v1", "v2_size": "v2"}
 
 
-def make_inference(inference: str, cfg: NetConfig, params: Params,
+def net_config_of(config: Dict):
+    """What :func:`make_inference` takes, from a configuration dict (a
+    benchmark configuration file): its ``arch`` (by default ``resnet``)
+    and shape keys.  ``resnet``: a :class:`NetConfig` of ``n_res_blocks``,
+    ``channels`` and ``value_hidden``; ``katago_nbt``: an ``NbtConfig`` of
+    the keys in ``NBT_KEYS``; both of ``board_size`` (the actions its
+    points) and ``in_channels``."""
+    arch = config.get("arch", "resnet")
+    size = config["board_size"]
+    common = dict(board_size=size, action_size=size * size,
+                  in_channels=config["in_channels"])
+    if arch == "resnet":
+        return NetConfig(**common, n_res_blocks=config["n_res_blocks"],
+                         channels=config["channels"],
+                         value_hidden=config["value_hidden"])
+    if arch == "katago_nbt":
+        return nbt.NbtConfig(**common, **{field: config[key]
+                                          for key, field in NBT_KEYS.items()})
+    raise ValueError(f"architecture {arch!r}: the port runs "
+                     f"{list(ARCHITECTURES)}")
+
+
+def make_inference(inference: str, cfg, params: Params,
                    batch_stats: Params, device=None, int8_skip: str = "f32",
                    calib_obs=None):
     """``(eval_fn, bundle)`` for an inference mode, the weights given in the
@@ -121,13 +152,25 @@ def make_inference(inference: str, cfg: NetConfig, params: Params,
 
     int8 bundles are calibrated on ``calib_obs`` (NHWC boards; the training
     loop's replay samples), by default on ``random_calib_obs`` boards, as
-    ``bench.py`` calibrates them.  ``play_games`` and ``run_mcts_packed``
+    ``bench.py`` calibrates them.  An ``NbtConfig`` (KataGo's net,
+    ``models/nbt.py``) takes ``"f32"`` (its float32 ``NbtNet``) and
+    ``"bf16"`` (``nbt.bf16_apply``, the global poolings one kernel launch
+    each) alone.  ``play_games`` and ``run_mcts_packed``
     take the pair as it is; the training loop makes the eval function once
     and a bundle at each weight update.
     """
     # imported here: the ops modules import models.resnet
     from alphazero_gomoku_tpu_torch.ops import fused_net, int8_net, int8_tower
 
+    if isinstance(cfg, nbt.NbtConfig):
+        if inference not in NBT_INFERENCE_MODES:
+            raise ValueError(f"inference mode {inference!r}: KataGo's net "
+                             f"runs {NBT_INFERENCE_MODES}")
+        if inference == "f32":
+            return make_eval_fn(), nbt.bundle_of(cfg, params, batch_stats,
+                                                 device)
+        return (nbt.make_bf16_eval_fn(cfg),
+                nbt.fold_bf16(cfg, params, batch_stats, device))
     if inference not in INFERENCE_MODES:
         raise ValueError(f"unknown inference mode {inference!r}: expected one "
                          f"of {INFERENCE_MODES}")

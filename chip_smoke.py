@@ -110,6 +110,9 @@ shapes (15x15, 128 lanes, Gomoku at 3 planes and Pente at 3 and 5) and at
 1024 lanes, then timed beside their byte bound, an empty kernel's replay
 and the host's microseconds a wrapper call; on the PUCT, Gumbel-reuse and
 Pente main paths every call of a game method must launch its kernel once.
+KataGo's global pooling (``ops/katago_gpool.py``; phase 2d,
+``gpool_phases``) is held against its plain version at b18c384nbt's three
+shapes on 256 boards and timed the same way; no other path launches it.
 
 ``width1_slice_write`` is held (exactly) on the repro's shape and on rows
 whose byte count is not a multiple of 16, with C at both edges, and timed
@@ -192,6 +195,7 @@ from alphazero_gomoku_tpu_torch.ops import fused_net as fn
 from alphazero_gomoku_tpu_torch.ops import game_kernels as gk
 from alphazero_gomoku_tpu_torch.ops import int8_net as q8
 from alphazero_gomoku_tpu_torch.ops import int8_tower as t8
+from alphazero_gomoku_tpu_torch.ops import katago_gpool as kg
 from alphazero_gomoku_tpu_torch.native import load_puremcts
 from alphazero_gomoku_tpu_torch.ops import tree_kernels as tk
 from alphazero_gomoku_tpu_torch.parallel import (
@@ -472,6 +476,11 @@ KERNEL_ROWS = {
         replaces=None),
     "game_terminal_value": dict(
         source="alphazero_gomoku_tpu_torch/csrc/game_step.cu",
+        replaces=None),
+    # KataGo's global pooling (models/nbt.py) replaces no TPU kernel: the
+    # JAX package has no KataGo net
+    "kata_gpool": dict(
+        source="alphazero_gomoku_tpu_torch/csrc/katago_gpool.cu",
         replaces=None),
 }
 # the env methods the game kernels serve, by the row of their kernel
@@ -790,6 +799,88 @@ def backup_bound(layout, plen, expanding, mode="backup"):
     return bound(nbytes, 2 * hops)
 
 
+# KataGo's poolings of one b18c384nbt call (models/nbt.py): (name, pooled
+# channels, channels added to, channels of the merged conv's output); 0
+# added: the value head's, which returns the pooled vector
+GPOOL_SHAPES = (("trunk", 64, 128, 192), ("policy", 64, 64, 128),
+                ("value", 128, 0, 128))
+GPOOL_BATCH = 256
+
+
+def gpool_bytes(batch: int, c: int, r: int) -> int:
+    """The bytes a pooling must move: ``g`` read (bf16), the linear's bf16
+    weights read and ``r`` read and written, or the float32 pooled vector
+    written (the value head's)."""
+    cells = BOARD * BOARD
+    if r == 0:
+        return batch * (2 * cells * c + 4 * 3 * c)
+    return 2 * batch * cells * (c + 2 * r) + 2 * 3 * c * r
+
+
+def gpool_phases(args, dev, rows):
+    """Phase 2d: the pooling kernel against ``gpool_plain`` at
+    b18c384nbt's three shapes on 256 boards of 15x15 (the pooled values
+    within 1e-5 relative, the target within one bf16 step: the sums'
+    order differs), then the times (CUDA-graph replay of 50 calls on
+    inputs left in L2 by the last; one eager call; the plain version), the
+    byte bound at the HBM's bandwidth and the floor (an empty kernel's
+    replay)."""
+    with Phase(f"2d KataGo's global pooling against its plain version "
+               f"(15x15, {GPOOL_BATCH} boards)"):
+        empty = lf.empty_ms()
+        gen = phase_gen(args.seed, 52, dev)
+        for name, c, r, width in GPOOL_SHAPES:
+            merged = torch.randn((GPOOL_BATCH, BOARD, BOARD, width),
+                                 generator=gen, device=dev).to(
+                torch.bfloat16).permute(0, 3, 1, 2)
+            g, target = merged[:, r:], merged[:, :r]
+            scale = 1 + 0.1 * torch.randn(c, generator=gen, device=dev)
+            shift = 0.1 * torch.randn(c, generator=gen, device=dev)
+            w = (torch.randn((3 * c, max(r, 2)), generator=gen, device=dev)
+                 / 8).to(torch.bfloat16)
+            if r == 0:
+                got = kg.gpool(g, scale, shift)
+                err = max_abs_err(got, kg.gpool_plain(g, scale, shift))
+                scale_of = float(got.abs().max())
+
+                def call():
+                    return kg.gpool(g, scale, shift)
+
+                def plain():
+                    return kg.gpool_plain(g, scale, shift)
+            else:
+                want = kg.gpool_plain(g, scale, shift, w,
+                                      target.clone()).float()
+                got = kg.gpool(g, scale, shift, w, target).float()
+                # beyond one bf16 step (2^-7 relative at most) of the plain
+                # value
+                err = float(((got - want).abs() - 2 ** -7 * want.abs()).max())
+                keep = merged.clone()
+
+                def call():
+                    return kg.gpool(g, scale, shift, w, target)
+
+                def plain():
+                    return kg.gpool_plain(g, scale, shift, w, target)
+            limit = 1e-5 * scale_of if r == 0 else 1e-5
+            if not err <= limit:
+                raise AssertionError(f"kata_gpool {name}: kernel against "
+                                     f"plain {err} > {limit}")
+            t = dict(ms=graph_ms(call, 50), eager_ms=cuda_ms(call, 50),
+                     plain_ms=cuda_ms(plain, reps=20, warmup=2),
+                     bound_ms=gpool_bytes(GPOOL_BATCH, c, r)
+                     / HBM_BYTES_PER_S * 1e3, floor_ms=empty)
+            if r:
+                merged.copy_(keep)
+            rows["kata_gpool"][name] = t
+            log(f"kata_gpool {name} ({c} pooled, {r or 3 * c} out, "
+                f"{GPOOL_BATCH} boards): kernel against plain {err:.3g} "
+                f"(limit {limit:.3g}); kernel {t['ms']:.4f} ms (CUDA graph "
+                f"replay, inputs in L2; eager call {t['eager_ms']:.4f} ms), "
+                f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms "
+                f"(bytes), floor {empty:.4f} ms")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -826,7 +917,8 @@ def main() -> int:
     with Phase("2 build (one nvcc per source, at once)"):
         libs = _build.build_all(["tree_kernels", "fused_net", "int8_tower",
                                  "matmul_rate", "width1_slice",
-                                 "latency_floor", "game_step"])
+                                 "latency_floor", "game_step",
+                                 "katago_gpool"])
         for built in libs.values():
             how = "reused an earlier build" if built.reused else "built"
             log(f"{how}: {built.path.name}, nvcc {built.seconds:.2f} s")
@@ -840,7 +932,8 @@ def main() -> int:
                  "gumbel_select_walk"),
                 ("matmul_rate", "rate_resident", "matmul_rate_int8"),
                 ("matmul_rate", "rate_streamed", "matmul_rate_int8"),
-                ("game_step", "step_kernel", "game_step")):
+                ("game_step", "step_kernel", "game_step"),
+                ("katago_gpool", "kata_gpool_kernel", "kata_gpool")):
             regs, spills = check_spills(libs[lib], match)
             rows[row].setdefault("ptxas_registers", {})[match] = regs
             rows[row]["ptxas_spill_bytes"] = (
@@ -852,6 +945,7 @@ def main() -> int:
         net = bundle_of(net_cfg, *weights, device=dev)
     eval_fn = make_eval_fn()
     game_phases(args, dev, rows)
+    gpool_phases(args, dev, rows)
 
     grow = dataclasses.replace(MAIN_MCTS, n_simulations=GROW_SIMS,
                                max_nodes=MAIN_MCTS.node_capacity)
@@ -1419,6 +1513,7 @@ def reset_launch_counts():
     t8.reset_launch_counts()
     mr.reset_launch_counts()
     ws.reset_launch_counts()
+    kg.gpool.launches = 0
 
 
 def launch_counts():
@@ -1434,7 +1529,8 @@ def launch_counts():
             "int8_tower": t8.int8_tower.launches,
             "matmul_rate_int8": mr.matmul_rate.dtype_launches["int8"],
             "matmul_rate_bf16": mr.matmul_rate.dtype_launches["bf16"],
-            "width1_slice_write": ws.width1_slice_write.launches}
+            "width1_slice_write": ws.width1_slice_write.launches,
+            "kata_gpool": kg.gpool.launches}
 
 
 def expect_launches(path: str, got, want, some=()):

@@ -1383,3 +1383,113 @@ def test_game_kernel_wrappers_raise_on_bad_cuda_inputs():
         big.step(big.init_batch(2, dev), action[:2])
     with pytest.raises(ValueError, match="at most"):
         big.legal_mask(big.init_batch(2, dev))
+
+
+# KataGo's global pooling (csrc/katago_gpool.cu) at the published widths of
+# b18c384nbt: a trunk gpool block (64 pooled channels added to the other 128
+# of a 192-channel merged conv), the policy head (64 added to 64 of 128)
+# and the value head (128 pooled, returned)
+GPOOL_CASES = [("trunk", 64, 128), ("policy", 64, 64), ("value", 128, 0)]
+
+
+def _gpool_inputs(dev, batch, c, r, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    merged = torch.randn((batch, 15, 15, c + r), generator=gen, device=dev)
+    merged = merged.to(torch.bfloat16).permute(0, 3, 1, 2)
+    scale = 1 + 0.1 * torch.randn(c, generator=gen, device=dev)
+    shift = 0.1 * torch.randn(c, generator=gen, device=dev)
+    w = (torch.randn((3 * c, max(r, 2)), generator=gen, device=dev)
+         / 8).to(torch.bfloat16)
+    return merged, scale, shift, w
+
+
+@pytest.mark.parametrize("batch", [256, 3])
+@pytest.mark.parametrize("case,c,r", GPOOL_CASES)
+def test_kata_gpool_kernel_equals_plain(case, c, r, batch):
+    """The kernel against ``gpool_plain`` on the same card tensors.  The
+    pooled float32 values within 1e-5 relative: both sum a channel's 225
+    points in float32, in other orders (the kernel in 16 or 32 partial
+    sums met in shared memory).  The target within one bf16 step of
+    itself (2^-7 relative at most): the vector added differs in its last
+    float32 bits, which can move a rounding of ``r`` by one step.  The
+    launch counter counts the kernel's calls alone."""
+    dev = _card()
+    from alphazero_gomoku_tpu_torch.ops import katago_gpool as kg
+    merged, scale, shift, w = _gpool_inputs(dev, batch, c, r, 30 + c + r)
+    g = merged[:, r:]
+    before = kg.gpool.launches
+    if r == 0:
+        got = kg.gpool(g, scale, shift)
+        want = kg.gpool_plain(g, scale, shift)
+        assert got.dtype == torch.float32 and got.shape == (batch, 3 * c)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-7)
+    else:
+        kept = merged.clone()
+        got = kg.gpool(g, scale, shift, w, merged[:, :r])
+        want = kg.gpool_plain(g, scale, shift, w, kept[:, :r].clone())
+        assert got.data_ptr() == merged.data_ptr()
+        assert torch.equal(merged[:, r:], kept[:, r:])
+        assert not torch.equal(merged[:, :r], kept[:, :r])
+        torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                                   atol=1e-6)
+    assert kg.gpool.launches == before + 1
+
+
+def test_kata_gpool_wrapper_raises_on_bad_inputs():
+    dev = _card()
+    from alphazero_gomoku_tpu_torch.ops import katago_gpool as kg
+    merged, scale, shift, w = _gpool_inputs(dev, 2, 64, 128, 1)
+    g, r = merged[:, 128:], merged[:, :128]
+    with pytest.raises(ValueError, match="channels_last"):
+        kg.gpool(g.contiguous(), scale, shift)
+    with pytest.raises(ValueError, match="bf16"):
+        kg.gpool(g.float(), scale, shift)
+    with pytest.raises(ValueError, match="together"):
+        kg.gpool(g, scale, shift, w)
+    with pytest.raises(ValueError, match="w must be"):
+        kg.gpool(g, scale, shift, w[:10], r)
+    with pytest.raises(ValueError, match="scale"):
+        kg.gpool(g, scale.double(), shift)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        kg.gpool(merged[:, 1:61], scale[:60], shift[:60])
+    with pytest.raises(ValueError, match="16-byte"):
+        kg.gpool(merged[:, 132:188], scale[:56], shift[:56])
+
+
+def test_nbt_bf16_forward_on_the_card():
+    """KataGo's net in bf16 on the card (cuDNN convs and the pooling
+    kernel) against the benchmark's bfloat16 reference, at the published
+    widths with 3 blocks on 64 boards, within the CPU test's tolerances
+    (``tests/test_torch_port_nbt.py``: priors 0.05 in total variation,
+    value 0.01); one pooling launch a gpool block and one a head; the
+    full 18 blocks at 256 boards launch 8 a call."""
+    dev = _card()
+    from alphazero_gomoku_tpu_torch.models import make_inference, net_config_of
+    from alphazero_gomoku_tpu_torch.ops import katago_gpool as kg
+    from benchmark import calib as bcalib
+    from benchmark import spec
+    from benchmark.reference.games import Game
+    net = spec.net("katago_nbt")
+    full = spec.config("gomoku15-b18c384nbt-bf16")
+    wide = dict(full, n_blocks=3, gpool_blocks=[3])
+    boards = bcalib.random_play_boards(Game("gomoku", 15), 256, 3)
+    obs = torch.as_tensor(boards).to(dev)
+    params, stats = net.init(wide, 7, dev)
+    eval_fn, bundle = make_inference("bf16", net_config_of(wide), params,
+                                     stats, device=dev)
+    before = kg.gpool.launches
+    probs, value = eval_fn(bundle, obs[:64])
+    assert kg.gpool.launches == before + 3
+    ref = net.make(params, stats, None, dev, {"dtype": "bfloat16"})
+    probs_ref, value_ref = ref(obs[:64])
+    tv = 0.5 * (probs - probs_ref).abs().sum(dim=-1)
+    assert float(tv.max()) <= 0.05
+    assert float((value[:, 0] - value_ref).abs().max()) <= 0.01
+    params, stats = net.init(full, 8, dev)
+    eval_fn, bundle = make_inference("bf16", net_config_of(full), params,
+                                     stats, device=dev)
+    before = kg.gpool.launches
+    probs, value = eval_fn(bundle, obs)
+    assert kg.gpool.launches == before + 8
+    assert probs.shape == (256, 225) and value.shape == (256, 1)
+    assert bool(torch.isfinite(probs).all() and torch.isfinite(value).all())
