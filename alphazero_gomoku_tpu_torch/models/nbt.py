@@ -47,11 +47,13 @@ Two forwards, both ``obs NHWC [B, H, W, planes] -> (logits [B, A], value
 [B, 1])``: :class:`NbtNet`, float32 plain torch modules (the ``f32``
 inference mode), and :func:`bf16_apply` on :func:`fold_bf16`'s bundle (the
 ``bf16`` mode): every norm that follows a conv folded into it, each other
-norm and its ReLU one elementwise pass, bf16 channels_last activations,
-cuDNN convs with float32 sums (``torch.backends.cudnn.benchmark`` left
-off, so every run picks the same algorithms), the convs that read one
-input merged, and each of the eight global poolings a call one launch of
-``ops/katago_gpool.py``'s kernel.  Its spans: ``az.nbt.trunk``,
+norm and its ReLU, with the residual add or the conv bias before it, one
+launch of ``ops/katago_eltwise.py``'s kernel (six an ordinary block),
+bf16 channels_last activations, cuDNN convs with float32 sums
+(``torch.backends.cudnn.benchmark`` left off, so every run picks the same
+algorithms), the convs that read one input merged, and each of the eight
+global poolings a call one launch of ``ops/katago_gpool.py``'s kernel.
+Its spans: ``az.nbt.trunk``,
 ``az.nbt.gpool`` and ``az.nbt.heads`` (``utils/profiling``).
 """
 
@@ -374,8 +376,12 @@ def fold_bf16(cfg: NbtConfig, params: Params, batch_stats: Params,
     whose first channels are ``r``; each other norm is a float32 affine,
     ``[1, C, 1, 1]`` for an elementwise pass (``na``) or ``[C]`` for the
     pooling kernel (``gs``, ``gt``); linears bf16 ``[in, out]`` (the
-    heads' last ones padded to 8 columns), biases float32."""
+    heads' last ones padded to 8 columns), biases float32.  On the card
+    the forward's two kernels are built here, at once."""
     dev = resolve_device(device)
+    if dev.type == "cuda":
+        from alphazero_gomoku_tpu_torch.ops import _build
+        _build.build_all(["katago_gpool", "katago_eltwise"])
     bf = torch.bfloat16
 
     def conv(*ws, scale=None):
@@ -441,50 +447,61 @@ def fold_bf16(cfg: NbtConfig, params: Params, batch_stats: Params,
     }
 
 
-def _na(x: torch.Tensor, affine) -> torch.Tensor:
-    """``relu(x * s + t)``: the affine in float32, stored once as bf16
-    (channels_last), the ReLU in place."""
-    out = torch.empty_like(x, memory_format=torch.channels_last)
-    return torch.addcmul(affine[1], x, affine[0], out=out).relu_()
-
-
-def bf16_apply(cfg: NbtConfig, bundle: Dict, obs: torch.Tensor):
+def bf16_apply(cfg: NbtConfig, bundle: Dict, obs: torch.Tensor,
+               eltwise=None):
     """The folded bf16 forward (module docstring): ``(logits [B, A],
-    value [B, 1])``, float32."""
+    value [B, 1])``, float32.  Each norm-and-ReLU, with the residual add
+    or the conv bias before it, is one pass of ``eltwise``
+    (``ops/katago_eltwise.py``'s kernel on the card; its plain version,
+    the torch composition, when given ``eltwise_plain``)."""
     # imported here: ops.fused_net imports models.resnet
     from alphazero_gomoku_tpu_torch.ops.fused_net import _mm_f32
     from alphazero_gomoku_tpu_torch.ops.katago_gpool import gpool
+    if eltwise is None:
+        from alphazero_gomoku_tpu_torch.ops.katago_eltwise import eltwise
 
     bf = torch.bfloat16
     b = obs.shape[0]
+    blocks = bundle["blocks"]
     with torch.no_grad():
         with trace_annotation("az.nbt.trunk"):
             x = F.conv2d(obs.permute(0, 3, 1, 2).to(bf), bundle["stem"],
                          padding=STEM_K // 2)
-            for blk in bundle["blocks"]:
-                z = F.conv2d(_na(x, blk["pre"]), blk["cp"])
-                for inn in blk["inner"]:
-                    u = _na(z, inn["n1"])
+            # h: the next norm-ReLU of the trunk, fused with the residual
+            # add before it; each sum stored only where it is read again
+            h = eltwise(x, blocks[0]["pre"] if blocks else bundle["trunk"])
+            for i, blk in enumerate(blocks):
+                z = F.conv2d(h, blk["cp"])
+                inner = blk["inner"]
+                u = eltwise(z, inner[0]["n1"])
+                for j, inn in enumerate(inner):
                     if "lg" in inn:
                         rg = F.conv2d(u, inn["c1"], padding=1)
                         r = rg[:, :inn["lg"].shape[1]]
                         with trace_annotation("az.nbt.gpool"):
                             gpool(rg[:, r.shape[1]:], inn["gs"], inn["gt"],
                                   inn["lg"], r)
-                        m = _na(r, inn["n2"])
+                        m = eltwise(r, inn["n2"])
                     else:
-                        m = F.conv2d(u, inn["c1"], inn["b1"],
-                                     padding=1).relu_()
-                    z.add_(F.conv2d(m, inn["c2"], padding=1))
-                x.add_(F.conv2d(_na(z, blk["mid"]), blk["cq"]))
-            t = _na(x, bundle["trunk"])
+                        m = F.conv2d(u, inn["c1"], padding=1)
+                        eltwise(m, bias=inn["b1"], out=m)
+                    last = j + 1 == len(inner)
+                    u = eltwise(z, blk["mid"] if last else inner[j + 1]["n1"],
+                                add=F.conv2d(m, inn["c2"], padding=1),
+                                store=not last)
+                more = i + 1 < len(blocks)
+                h = eltwise(x, blocks[i + 1]["pre"] if more
+                            else bundle["trunk"],
+                            add=F.conv2d(u, blk["cq"]), store=more)
+            t = h
         with trace_annotation("az.nbt.heads"):
             pol = bundle["policy"]
             pg = F.conv2d(t, pol["cpg"])
             p = pg[:, :cfg.p1]
             with trace_annotation("az.nbt.gpool"):
                 gpool(pg[:, cfg.p1:], pol["gs"], pol["gt"], pol["lg"], p)
-            rows = _na(p, pol["n2"]).permute(0, 2, 3, 1).reshape(-1, cfg.p1)
+            rows = eltwise(p, pol["n2"]).permute(0, 2, 3, 1).reshape(
+                -1, cfg.p1)
             logits = _mm_f32(rows, pol["out"])[:, 0].reshape(b, -1)
             val = bundle["value"]
             with trace_annotation("az.nbt.gpool"):

@@ -14,8 +14,8 @@ contracted into an FMA and they round as their plain versions do; the bf16
 tower, the rate probe (only tensor-core sums), the slice write (its one
 multiply and add rounded apart by intrinsics), the latency probes (no
 arithmetic), the game step (one IEEE division, no multiply and add) and
-the global pooling (its affine rounded apart by intrinsics) build without
-it; no source takes a fast-math flag.  No PyTorch
+the global pooling and the elementwise passes (their arithmetic rounded
+by intrinsics) build without it; no source takes a fast-math flag.  No PyTorch
 headers are included, so a build takes seconds.  The two towers include
 ``csrc/conv_tile.cuh``, their shared core, found beside the source.
 :func:`build_all` starts one ``nvcc`` per source at once.  The library name
@@ -55,6 +55,7 @@ SOURCE_FLAGS = {
     "latency_floor": (),
     "game_step": (),
     "katago_gpool": (),
+    "katago_eltwise": (),
 }
 
 

@@ -113,6 +113,13 @@ Pente main paths every call of a game method must launch its kernel once.
 KataGo's global pooling (``ops/katago_gpool.py``; phase 2d,
 ``gpool_phases``) is held against its plain version at b18c384nbt's three
 shapes on 256 boards and timed the same way; no other path launches it.
+KataGo's elementwise passes (``ops/katago_eltwise.py``; phase 2e,
+``eltwise_phases``) are held against their plain version (the torch
+composition they replace) bit for bit in each mode at b18c384nbt's widths
+on 256 boards and timed the same way, then the whole bf16 forward of
+b18c384nbt on 256 boards, on the kernel and on the plain passes: logits and
+value bit for bit, 110 launches a call, the card's ms and the host's
+enqueue ms a call; no other path launches it.
 
 ``width1_slice_write`` is held (exactly) on the repro's shape and on rows
 whose byte count is not a multiple of 16, with C at both edges, and timed
@@ -182,6 +189,7 @@ from alphazero_gomoku_tpu_torch.models import (
     params_from_jax,
 )
 from alphazero_gomoku_tpu_torch.models import checkpoint as ckpt
+from alphazero_gomoku_tpu_torch.models import nbt
 from alphazero_gomoku_tpu_torch.models.model import (
     AdamState,
     AZModel,
@@ -195,6 +203,7 @@ from alphazero_gomoku_tpu_torch.ops import fused_net as fn
 from alphazero_gomoku_tpu_torch.ops import game_kernels as gk
 from alphazero_gomoku_tpu_torch.ops import int8_net as q8
 from alphazero_gomoku_tpu_torch.ops import int8_tower as t8
+from alphazero_gomoku_tpu_torch.ops import katago_eltwise as ke
 from alphazero_gomoku_tpu_torch.ops import katago_gpool as kg
 from alphazero_gomoku_tpu_torch.native import load_puremcts
 from alphazero_gomoku_tpu_torch.ops import tree_kernels as tk
@@ -481,6 +490,10 @@ KERNEL_ROWS = {
     # JAX package has no KataGo net
     "kata_gpool": dict(
         source="alphazero_gomoku_tpu_torch/csrc/katago_gpool.cu",
+        replaces=None),
+    # KataGo's elementwise passes (models/nbt.py), likewise port-only
+    "kata_eltwise": dict(
+        source="alphazero_gomoku_tpu_torch/csrc/katago_eltwise.cu",
         replaces=None),
 }
 # the env methods the game kernels serve, by the row of their kernel
@@ -881,6 +894,153 @@ def gpool_phases(args, dev, rows):
                 f"(bytes), floor {empty:.4f} ms")
 
 
+# KataGo's elementwise passes of one b18c384nbt call (models/nbt.py): (name,
+# channels of the tensor, channels of the pass, mode); the passes a block
+# makes: a trunk add with the next block's norm (stored), the mid's norm,
+# an inner conv's bias-ReLU (in place), an inner add with the next norm
+# (stored, then not), and the norms on channel slices of a gpool block's
+# and the policy head's merged convs
+ELTWISE_SHAPES = (("trunk_add_norm", 384, 384, "add_store"),
+                  ("trunk_norm", 384, 384, "norm"),
+                  ("mid_norm", 192, 192, "norm"),
+                  ("mid_bias", 192, 192, "bias"),
+                  ("mid_add_norm_store", 192, 192, "add_store"),
+                  ("mid_add_norm", 192, 192, "add"),
+                  ("gpool_norm", 192, 128, "norm"),
+                  ("policy_norm", 128, 64, "norm"))
+# tensors a pass reads and writes, by mode
+ELTWISE_PASSES = {"norm": 2, "bias": 2, "add": 3, "add_store": 4}
+ELTWISE_BATCH = 256
+ELTWISE_CALL = 110      # launches a b18c384nbt call: 1 + 6 x 18 + 1
+# the bytes a timed pass's sets of inputs span together, four times the
+# H100's 50 MB L2, so that a replayed call finds none of its inputs there
+ELTWISE_ROTATE_BYTES = 200e6
+
+
+def same_bits(got, want) -> bool:
+    return torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+def eltwise_phases(args, dev, rows):
+    """Phase 2e: the elementwise kernel against ``eltwise_plain`` at
+    b18c384nbt's passes on 256 boards of 15x15, bit for bit, then the
+    times (CUDA-graph replay of 50 calls; one eager call; the host's
+    microseconds a wrapper call; the plain version; each turning over
+    sets of inputs that span ``ELTWISE_ROTATE_BYTES``), the byte bound at
+    the HBM's bandwidth and the floor; then one bf16 call of the whole net
+    on 256 random boards on the kernel and on the plain passes: bit for
+    bit, launches, the card's ms (events around 10 calls) and the host's
+    ms to enqueue a call (the card idle when it starts)."""
+    with Phase(f"2e KataGo's elementwise passes against their plain version "
+               f"(15x15, {ELTWISE_BATCH} boards)"):
+        empty = lf.empty_ms()
+        gen = phase_gen(args.seed, 53, dev)
+        points = ELTWISE_BATCH * BOARD * BOARD
+        for name, width, c, mode in ELTWISE_SHAPES:
+            def planes():
+                return (2 * torch.randn((ELTWISE_BATCH, BOARD, BOARD, width),
+                                        generator=gen, device=dev)).to(
+                    torch.bfloat16).permute(0, 3, 1, 2)[:, :c]
+
+            x, y = planes(), planes()
+            affine = ((1 + 0.3 * torch.randn(c, generator=gen, device=dev)
+                       ).view(1, c, 1, 1),
+                      (0.3 * torch.randn(c, generator=gen, device=dev)
+                       ).view(1, c, 1, 1))
+            bias = (0.3 * torch.randn(c, generator=gen, device=dev)).to(
+                torch.bfloat16)
+
+            def args_of(x, y):
+                if mode == "bias":
+                    return dict(bias=bias, out=x)
+                if mode.startswith("add"):
+                    return dict(affine=affine, add=y,
+                                store=mode == "add_store")
+                return dict(affine=affine)
+            kw = args_of(x, y)
+            kept = x.clone()
+            want_x = kept.clone()
+            want = ke.eltwise_plain(want_x, **dict(kw, out=want_x)
+                                    if mode == "bias" else kw)
+            got = ke.eltwise(x, **kw)
+            # x: the stored sum, or left as it was (the bias's x is got)
+            x_ok = mode == "bias" or same_bits(
+                x, want_x if mode == "add_store" else kept)
+            if not (same_bits(got, want) and x_ok):
+                raise AssertionError(f"kata_eltwise {name}: kernel differs "
+                                     f"from plain")
+
+            nbytes = 2 * points * c * ELTWISE_PASSES[mode]
+            sets = [(x, kw)]
+            while len(sets) * nbytes < ELTWISE_ROTATE_BYTES:
+                more = planes(), planes()
+                sets.append((more[0], args_of(*more)))
+            turn = [0]
+
+            def turning(fn):
+                def call():
+                    turn[0] += 1
+                    xs, kws = sets[turn[0] % len(sets)]
+                    return fn(xs, **kws)
+                return call
+            call = turning(ke.eltwise)
+            t = dict(ms=graph_ms(call, 50), eager_ms=cuda_ms(call, 50),
+                     host_us=host_us(call),
+                     plain_ms=cuda_ms(turning(ke.eltwise_plain), reps=20,
+                                      warmup=2),
+                     bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, floor_ms=empty,
+                     input_sets=len(sets))
+            rows["kata_eltwise"][name] = t
+            log(f"kata_eltwise {name} ({c} of {width} channels, {mode}, "
+                f"{ELTWISE_BATCH} boards): kernel equals plain; kernel "
+                f"{t['ms']:.4f} ms (CUDA graph replay over {len(sets)} sets "
+                f"of inputs; eager call {t['eager_ms']:.4f} ms, host "
+                f"{t['host_us']:.1f} us a call), plain {t['plain_ms']:.4f} "
+                f"ms, bound {t['bound_ms']:.6f} ms (bytes, "
+                f"{t['bound_ms'] / t['ms'] * 100:.1f} % of it), floor "
+                f"{empty:.4f} ms")
+
+        cfg = nbt.NbtConfig(board_size=BOARD, action_size=BOARD * BOARD)
+        bundle = nbt.fold_bf16(cfg, *nbt.init_params(cfg, args.seed),
+                               device=dev)
+        env = make_env("gomoku", BOARD)
+        obs = env.encode(random_states(env, ELTWISE_BATCH, 20, gen, dev))
+        before = ke.eltwise.launches
+        logits, value = nbt.bf16_apply(cfg, bundle, obs)
+        launches = ke.eltwise.launches - before
+        want = nbt.bf16_apply(cfg, bundle, obs, eltwise=ke.eltwise_plain)
+        if launches != ELTWISE_CALL or ke.eltwise.launches - before \
+                != ELTWISE_CALL:
+            raise AssertionError(f"kata_eltwise: {launches} launches a "
+                                 f"b18c384nbt call, expected {ELTWISE_CALL}")
+        if not (torch.equal(logits, want[0]) and torch.equal(value, want[1])):
+            raise AssertionError("b18c384nbt bf16 call: fused passes differ "
+                                 "from plain")
+
+        def enqueue_ms(eltwise):
+            spans = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                nbt.bf16_apply(cfg, bundle, obs, eltwise=eltwise)
+                spans.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            return statistics.median(spans)
+
+        net = dict(launches=launches,
+                   ms=cuda_ms(lambda: nbt.bf16_apply(cfg, bundle, obs), 10),
+                   plain_ms=cuda_ms(lambda: nbt.bf16_apply(
+                       cfg, bundle, obs, eltwise=ke.eltwise_plain), 10),
+                   enqueue_ms=enqueue_ms(None),
+                   plain_enqueue_ms=enqueue_ms(ke.eltwise_plain))
+        rows["kata_eltwise"]["b18c384nbt_call"] = net
+        log(f"b18c384nbt bf16 call ({ELTWISE_BATCH} boards): fused passes "
+            f"equal plain bit for bit, {launches} launches; card "
+            f"{net['ms']:.3f} ms (plain passes {net['plain_ms']:.3f} ms); "
+            f"host enqueue {net['enqueue_ms']:.3f} ms (plain passes "
+            f"{net['plain_enqueue_ms']:.3f} ms)")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -918,7 +1078,7 @@ def main() -> int:
         libs = _build.build_all(["tree_kernels", "fused_net", "int8_tower",
                                  "matmul_rate", "width1_slice",
                                  "latency_floor", "game_step",
-                                 "katago_gpool"])
+                                 "katago_gpool", "katago_eltwise"])
         for built in libs.values():
             how = "reused an earlier build" if built.reused else "built"
             log(f"{how}: {built.path.name}, nvcc {built.seconds:.2f} s")
@@ -933,7 +1093,8 @@ def main() -> int:
                 ("matmul_rate", "rate_resident", "matmul_rate_int8"),
                 ("matmul_rate", "rate_streamed", "matmul_rate_int8"),
                 ("game_step", "step_kernel", "game_step"),
-                ("katago_gpool", "kata_gpool_kernel", "kata_gpool")):
+                ("katago_gpool", "kata_gpool_kernel", "kata_gpool"),
+                ("katago_eltwise", "kata_eltwise_kernel", "kata_eltwise")):
             regs, spills = check_spills(libs[lib], match)
             rows[row].setdefault("ptxas_registers", {})[match] = regs
             rows[row]["ptxas_spill_bytes"] = (
@@ -946,6 +1107,7 @@ def main() -> int:
     eval_fn = make_eval_fn()
     game_phases(args, dev, rows)
     gpool_phases(args, dev, rows)
+    eltwise_phases(args, dev, rows)
 
     grow = dataclasses.replace(MAIN_MCTS, n_simulations=GROW_SIMS,
                                max_nodes=MAIN_MCTS.node_capacity)
@@ -1514,6 +1676,7 @@ def reset_launch_counts():
     mr.reset_launch_counts()
     ws.reset_launch_counts()
     kg.gpool.launches = 0
+    ke.eltwise.launches = 0
 
 
 def launch_counts():
@@ -1530,7 +1693,8 @@ def launch_counts():
             "matmul_rate_int8": mr.matmul_rate.dtype_launches["int8"],
             "matmul_rate_bf16": mr.matmul_rate.dtype_launches["bf16"],
             "width1_slice_write": ws.width1_slice_write.launches,
-            "kata_gpool": kg.gpool.launches}
+            "kata_gpool": kg.gpool.launches,
+            "kata_eltwise": ke.eltwise.launches}
 
 
 def expect_launches(path: str, got, want, some=()):

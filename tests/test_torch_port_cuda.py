@@ -1456,6 +1456,149 @@ def test_kata_gpool_wrapper_raises_on_bad_inputs():
         kg.gpool(merged[:, 132:188], scale[:56], shift[:56])
 
 
+# KataGo's elementwise passes (csrc/katago_eltwise.cu) at b18c384nbt's widths:
+# (channels of the tensor, channels of the pass, the slice's first channel):
+# the trunk, the mid, a gpool block's 128 of 192, the policy head's 64 of 128
+ELTWISE_WIDTHS = [(384, 384, 0), (192, 192, 0), (192, 128, 0), (128, 64, 0)]
+ELTWISE_MODES = ["norm_relu", "add_store", "add", "bias_relu", "bias_in_place"]
+
+
+def _eltwise_inputs(dev, batch, width, c, first, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def planes():
+        t = (2 * torch.randn((batch, 15, 15, width), generator=gen,
+                             device=dev)).to(torch.bfloat16)
+        return t.permute(0, 3, 1, 2)[:, first:first + c]
+
+    x, y = planes(), planes()
+    scale = (1 + 0.3 * torch.randn(c, generator=gen, device=dev)).view(
+        1, c, 1, 1)
+    shift = (0.3 * torch.randn(c, generator=gen, device=dev)).view(1, c, 1, 1)
+    bias = (0.3 * torch.randn(c, generator=gen, device=dev)).to(torch.bfloat16)
+    return x, y, (scale, shift), bias
+
+
+def _eltwise_args(mode, y, affine, bias):
+    if mode.startswith("bias"):
+        return dict(bias=bias)
+    if mode.startswith("add"):
+        return dict(affine=affine, add=y, store=mode == "add_store")
+    return dict(affine=affine)
+
+
+def _same_bits(got, want):
+    return torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("batch", [256, 3])
+@pytest.mark.parametrize("width,c,first", ELTWISE_WIDTHS)
+@pytest.mark.parametrize("mode", ELTWISE_MODES)
+def test_kata_eltwise_kernel_equals_plain(mode, width, c, first, batch):
+    """The kernel against ``eltwise_plain`` (the torch composition it
+    replaces) on the same card tensors, bit for bit (a zero's sign too:
+    torch's ``relu_`` gives +0 for -0, as the kernel does): the output and,
+    where the sum is stored, the sum; one launch a call."""
+    dev = _card()
+    from alphazero_gomoku_tpu_torch.ops import katago_eltwise as ke
+    x, y, affine, bias = _eltwise_inputs(dev, batch, width, c, first,
+                                         40 + c + first + batch)
+    kw = _eltwise_args(mode, y, affine, bias)
+    x_plain = x.clone()
+    want = ke.eltwise_plain(x_plain, **kw)
+    kept = x.clone()
+    before = ke.eltwise.launches
+    if mode == "bias_in_place":
+        got = ke.eltwise(x, out=x, **kw)
+        assert got.data_ptr() == x.data_ptr()
+    else:
+        got = ke.eltwise(x, **kw)
+        assert got.is_contiguous(memory_format=torch.channels_last)
+        assert _same_bits(x, x_plain if mode == "add_store" else kept)
+    assert ke.eltwise.launches == before + 1
+    assert _same_bits(got, want)
+    assert bool((want == 0).any() and (want > 0).any())
+    if mode == "add_store":
+        assert not torch.equal(x, kept)
+
+
+def test_kata_eltwise_wrapper_raises_on_bad_inputs():
+    dev = _card()
+    from alphazero_gomoku_tpu_torch.ops import katago_eltwise as ke
+    x, y, affine, bias = _eltwise_inputs(dev, 2, 192, 128, 0, 1)
+    wide = _eltwise_inputs(dev, 2, 192, 192, 0, 2)[0]
+    before = ke.eltwise.launches
+    with pytest.raises(ValueError, match="bf16"):
+        ke.eltwise(x.float(), affine)
+    with pytest.raises(ValueError, match="channels_last"):
+        ke.eltwise(x.contiguous(), affine)
+    with pytest.raises(ValueError, match="channels_last"):
+        ke.eltwise(x, affine, add=y.contiguous())
+    with pytest.raises(ValueError, match="16-byte"):
+        ke.eltwise(wide[:, 4:132], affine)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ke.eltwise(wide[:, :60], tuple(a[:, :60] for a in affine))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ke.eltwise(x.new_zeros((2, 4, 15, 15)), tuple(a[:, :4]
+                                                      for a in affine))
+    with pytest.raises(ValueError, match="bf16"):
+        ke.eltwise(x, affine, add=y[:, :64])
+    with pytest.raises(ValueError, match="scale"):
+        ke.eltwise(x, (affine[0].double(), affine[1]))
+    with pytest.raises(ValueError, match="shift"):
+        ke.eltwise(x, (affine[0], affine[1][:, :64]))
+    with pytest.raises(ValueError, match="bias"):
+        ke.eltwise(x, bias=bias.float())
+    with pytest.raises(ValueError, match="out"):
+        ke.eltwise(x, affine, out=y.contiguous())
+    with pytest.raises(ValueError, match="one of them"):
+        ke.eltwise(x)
+    with pytest.raises(ValueError, match="into its output"):
+        ke.eltwise(x, affine, add=y, store=True, out=x)
+    assert ke.eltwise.launches == before
+
+
+def test_nbt_bf16_forward_fused_passes_bit_for_bit():
+    """KataGo's bf16 forward with the fused passes against the same
+    forward on their plain version (the torch composition of
+    ``addcmul``, ``relu_`` and ``add_`` it replaces), on the cell's net
+    (b18c384nbt, its seeded weights) and three sets of 256 random-play
+    boards (4 to 60 plies): logits and value bit for bit.  A call launches
+    the kernel 1 + 6 x 18 + 1 = 110 times (the stem's norm, six an
+    ordinary block, the policy head's norm) and no torch ``addcmul``,
+    ``relu_`` or ``add_``."""
+    dev = _card()
+    from alphazero_gomoku_tpu_torch.models import make_inference, net_config_of
+    from alphazero_gomoku_tpu_torch.models import nbt
+    from alphazero_gomoku_tpu_torch.ops import katago_eltwise as ke
+    from benchmark import calib as bcalib
+    from benchmark import spec
+    from benchmark.reference.games import Game
+    config = spec.config("gomoku15-b18c384nbt-bf16")
+    params, stats = spec.net("katago_nbt").init(config,
+                                                config["weights_seed"], dev)
+    cfg = net_config_of(config)
+    _, bundle = make_inference("bf16", cfg, params, stats, device=dev)
+    for seed in (3, 4, 5):
+        obs = torch.as_tensor(bcalib.random_play_boards(
+            Game("gomoku", 15), 256, seed)).to(dev)
+        before = ke.eltwise.launches
+        logits, value = nbt.bf16_apply(cfg, bundle, obs)
+        assert ke.eltwise.launches == before + 110
+        want_logits, want_value = nbt.bf16_apply(cfg, bundle, obs,
+                                                 eltwise=ke.eltwise_plain)
+        assert ke.eltwise.launches == before + 110
+        assert torch.equal(logits, want_logits), seed
+        assert torch.equal(value, want_value), seed
+        assert float(logits.std()) > 0.5
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        nbt.bf16_apply(cfg, bundle, obs)
+    ops = {e.key for e in prof.key_averages()}
+    assert not ops & {"aten::addcmul", "aten::relu_", "aten::add_",
+                      "aten::clamp_min_"}, ops
+
+
 def test_nbt_bf16_forward_on_the_card():
     """KataGo's net in bf16 on the card (cuDNN convs and the pooling
     kernel) against the benchmark's bfloat16 reference, at the published

@@ -19,6 +19,7 @@ if ROOT not in sys.path:
 from alphazero_gomoku_tpu_torch import models  # noqa: E402
 from alphazero_gomoku_tpu_torch.games import make_env  # noqa: E402
 from alphazero_gomoku_tpu_torch.models import nbt  # noqa: E402
+from alphazero_gomoku_tpu_torch.ops import katago_eltwise  # noqa: E402
 from alphazero_gomoku_tpu_torch.ops import katago_gpool  # noqa: E402
 from alphazero_gomoku_tpu_torch.search import MCTSConfig  # noqa: E402
 from alphazero_gomoku_tpu_torch.selfplay import (  # noqa: E402
@@ -257,6 +258,149 @@ def test_seeded_heads_are_alive_at_the_published_widths():
             moved = max(float((zl - logits).abs().max()),
                         float((zv - value).abs().max()))
             assert moved > 1e-4, (i, name)
+
+
+# the elementwise passes at b18c384nbt's widths: (channels of the tensor,
+# channels of the pass, a slice's first channel): the trunk, the mid, a
+# gpool block's 128 of 192, the policy head's 64 of 128
+ELTWISE_WIDTHS = [(384, 384, 0), (192, 192, 0), (192, 128, 0), (128, 64, 0)]
+ELTWISE_MODES = ["norm_relu", "add_store", "add", "bias_relu"]
+
+
+def _eltwise_inputs(width, c, first, seed=0, batch=3):
+    """Channels_last bf16 ``x`` and ``y`` (channel slices when ``c <
+    width``), a norm's affine ``[1, C, 1, 1]`` and a bf16 bias, as the
+    bundle holds them."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def planes():
+        t = (2 * torch.randn((batch, 15, 15, width), generator=gen)).to(
+            torch.bfloat16).permute(0, 3, 1, 2)
+        return t[:, first:first + c]
+
+    x, y = planes(), planes()
+    scale = (1 + 0.3 * torch.randn(c, generator=gen)).view(1, c, 1, 1)
+    shift = (0.3 * torch.randn(c, generator=gen)).view(1, c, 1, 1)
+    bias = (0.3 * torch.randn(c, generator=gen)).to(torch.bfloat16)
+    return x, y, (scale, shift), bias
+
+
+def _old_na(x, affine):
+    """The bf16 forward's norm-ReLU before the fused passes."""
+    out = torch.empty_like(x, memory_format=torch.channels_last)
+    return torch.addcmul(affine[1], x, affine[0], out=out).relu_()
+
+
+@pytest.mark.parametrize("width,c,first", ELTWISE_WIDTHS)
+@pytest.mark.parametrize("mode", ELTWISE_MODES)
+def test_plain_eltwise_is_the_old_composition(mode, width, c, first):
+    """``eltwise_plain`` in each mode equals the forward's former torch
+    composition bit for bit: ``addcmul`` and ``relu_`` for a norm-ReLU,
+    ``add_`` before it for a residual add (stored or not), and the conv
+    bias's broadcast ``add_`` and ``relu_``; ``eltwise`` on CPU tensors is
+    the plain version and launches nothing."""
+    x, y, affine, bias = _eltwise_inputs(width, c, first, seed=c + first)
+    kept = x.clone()
+    launches = katago_eltwise.eltwise.launches
+    if mode == "norm_relu":
+        want, got = _old_na(x, affine), katago_eltwise.eltwise_plain(
+            x, affine)
+        x_want = kept
+    elif mode in ("add_store", "add"):
+        z = kept.clone()
+        want = _old_na(z.add_(y), affine)
+        got = katago_eltwise.eltwise_plain(x, affine, add=y,
+                                           store=mode == "add_store")
+        x_want = z if mode == "add_store" else kept
+    else:
+        want = kept.clone().add_(bias.view(1, -1, 1, 1)).relu_()
+        got = katago_eltwise.eltwise_plain(x, bias=bias)
+        x_want = kept
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, want) and torch.equal(x, x_want)
+    assert (got >= 0).all() and (got == 0).any() and (got > 0).any()
+    x.copy_(kept)
+    again = katago_eltwise.eltwise(x, None if mode == "bias_relu" else affine,
+                                   add=y if mode.startswith("add") else None,
+                                   store=mode == "add_store",
+                                   bias=bias if mode == "bias_relu" else None)
+    assert torch.equal(again, want) and torch.equal(x, x_want)
+    assert katago_eltwise.eltwise.launches == launches
+
+
+def test_plain_eltwise_in_place_and_its_modes():
+    """The bias-ReLU in place (``out=x``), as the forward runs it on a
+    conv's output; the modes that do not exist raise."""
+    x, y, affine, bias = _eltwise_inputs(192, 192, 0, seed=5)
+    want = x.clone().add_(bias.view(1, -1, 1, 1)).relu_()
+    got = katago_eltwise.eltwise_plain(x, bias=bias, out=x)
+    assert got is x and torch.equal(x, want)
+    for kw, match in ((dict(), "one of them"),
+                      (dict(affine=affine, bias=bias), "one of them"),
+                      (dict(bias=bias, add=y), "not both"),
+                      (dict(affine=affine, store=True), "needs add"),
+                      (dict(affine=affine, add=y, store=True, out=x),
+                       "into its output")):
+        for fn in (katago_eltwise.eltwise_plain, katago_eltwise.eltwise):
+            with pytest.raises(ValueError, match=match):
+                fn(x, **kw)
+
+
+def _old_bf16_apply(cfg, bundle, obs):
+    """The bf16 forward as it was before the fused passes, with a conv's
+    bias added as torch adds it after a cuDNN conv (a broadcast ``add_``)."""
+    from alphazero_gomoku_tpu_torch.ops.fused_net import _mm_f32
+    F = torch.nn.functional
+    bf = torch.bfloat16
+    b = obs.shape[0]
+    x = F.conv2d(obs.permute(0, 3, 1, 2).to(bf), bundle["stem"], padding=2)
+    for blk in bundle["blocks"]:
+        z = F.conv2d(_old_na(x, blk["pre"]), blk["cp"])
+        for inn in blk["inner"]:
+            u = _old_na(z, inn["n1"])
+            if "lg" in inn:
+                rg = F.conv2d(u, inn["c1"], padding=1)
+                r = rg[:, :inn["lg"].shape[1]]
+                katago_gpool.gpool(rg[:, r.shape[1]:], inn["gs"], inn["gt"],
+                                   inn["lg"], r)
+                m = _old_na(r, inn["n2"])
+            else:
+                m = F.conv2d(u, inn["c1"], padding=1).add_(
+                    inn["b1"].view(1, -1, 1, 1)).relu_()
+            z.add_(F.conv2d(m, inn["c2"], padding=1))
+        x.add_(F.conv2d(_old_na(z, blk["mid"]), blk["cq"]))
+    t = _old_na(x, bundle["trunk"])
+    pol = bundle["policy"]
+    pg = F.conv2d(t, pol["cpg"])
+    p = pg[:, :cfg.p1]
+    katago_gpool.gpool(pg[:, cfg.p1:], pol["gs"], pol["gt"], pol["lg"], p)
+    rows = _old_na(p, pol["n2"]).permute(0, 2, 3, 1).reshape(-1, cfg.p1)
+    logits = _mm_f32(rows, pol["out"])[:, 0].reshape(b, -1)
+    val = bundle["value"]
+    pooled = katago_gpool.gpool(F.conv2d(t, val["c"]), val["gs"], val["gt"])
+    h = torch.relu(_mm_f32(pooled.to(bf), val["w1"]) + val["b1"])
+    wdl = torch.softmax(_mm_f32(h.to(bf), val["w2"])[:, :3] + val["b2"],
+                        dim=-1)
+    return logits, (wdl[:, 0] - wdl[:, 1])[:, None]
+
+
+@pytest.mark.parametrize("n_blocks", [3, 1])
+def test_fused_passes_keep_the_forward_bit_for_bit(n_blocks):
+    """The forward with each add fused into the next norm-ReLU and each
+    sum stored only where it is read again equals the former forward bit
+    for bit (plain passes on the CPU), over a gpool block, an ordinary
+    one, and a net of one block (whose end is the trunk's norm)."""
+    config = dict(SMALL, n_blocks=n_blocks,
+                  gpool_blocks=[3] if n_blocks == 3 else [1])
+    cfg = models.net_config_of(config)
+    params, stats = _net().init(config, 13)
+    bundle = nbt.fold_bf16(cfg, params, stats, device="cpu")
+    obs = _boards(6, seed=21)
+    logits, value = nbt.bf16_apply(cfg, bundle, obs)
+    want_logits, want_value = _old_bf16_apply(cfg, bundle, obs)
+    assert torch.equal(logits, want_logits) and torch.equal(value, want_value)
+    assert float(logits.std()) > 0.1
 
 
 @pytest.mark.parametrize("mode", ["int8", "int8t", "fused", "nosuch"])
