@@ -155,7 +155,7 @@ def make_inference(inference: str, cfg, params: Params,
     ``bench.py`` calibrates them.  An ``NbtConfig`` (KataGo's net,
     ``models/nbt.py``) takes ``"f32"`` (its float32 ``NbtNet``) and
     ``"bf16"`` (``nbt.bf16_apply``, the global poolings one kernel launch
-    each) alone.  ``play_games`` and ``run_mcts_packed``
+    each) alone.  ``play_games`` and ``run_search``
     take the pair as it is; the training loop makes the eval function once
     and a bundle at each weight update.
     """

@@ -36,9 +36,7 @@ from alphazero_gomoku_tpu_torch.search import MCTSConfig
 from alphazero_gomoku_tpu_torch.search.pure_mcts import winning_cells
 from alphazero_gomoku_tpu_torch.search.tree_packed import (
     packed_advance_root,
-    run_gumbel_packed,
-    run_mcts_packed,
-    run_mcts_packed_with_tree,
+    run_search,
 )
 
 
@@ -198,7 +196,7 @@ class AlphaZeroPlayer:
         self._board_after_our_move: Optional[np.ndarray] = None
 
     # ------------------------------------------------------------------
-    # the searches, on a batch of one; each returns pi as numpy [A]
+    # the search, on a batch of one
     # ------------------------------------------------------------------
     def _moves(self, turn_number: int) -> torch.Tensor:
         return torch.tensor([int(turn_number)], dtype=torch.int32,
@@ -214,29 +212,16 @@ class AlphaZeroPlayer:
                                       generator=gen, device=self.device),
                            min=1e-12)
 
-    def _search(self, state, turn_number: int) -> np.ndarray:
-        """One search without reuse (Gumbel, or PUCT with reuse off)."""
-        if self.search == "gumbel":
-            pi, _, _ = run_gumbel_packed(
-                self.env, self.cfg, self._eval_fn, self._bundle, state,
-                uniforms=self._root_uniforms(turn_number), ops=self.tree_ops)
-        else:
-            pi, _ = run_mcts_packed(self.env, self.cfg, self._eval_fn,
-                                    self._bundle, state,
-                                    self._moves(turn_number),
-                                    ops=self.tree_ops)
-        return pi[0].cpu().numpy()
-
-    def _search_fresh(self, state, turn_number: int):
-        pi, _, carry = run_mcts_packed_with_tree(
+    def _search(self, state, turn_number: int, carry=None):
+        """One search: ``(pi, the searched tree)``.  ``carry`` (with reuse)
+        resumes the held tree, whose root is the position (``state`` is then
+        None); Gumbel's root uniforms are :meth:`_root_uniforms`'s."""
+        gumbel = self.search == "gumbel"
+        pi, _, _, carry = run_search(
             self.env, self.cfg, self._eval_fn, self._bundle, state,
-            self._moves(turn_number), ops=self.tree_ops)
-        return pi[0].cpu().numpy(), carry
-
-    def _search_resume(self, carry, turn_number: int):
-        pi, _, carry = run_mcts_packed_with_tree(
-            self.env, self.cfg, self._eval_fn, self._bundle, None,
-            self._moves(turn_number), ops=self.tree_ops, carry=carry)
+            None if gumbel else self._moves(turn_number), carry=carry,
+            uniforms=self._root_uniforms(turn_number) if gumbel else None,
+            ops=self.tree_ops)
         return pi[0].cpu().numpy(), carry
 
     def _advance(self, carry, action: int):
@@ -297,13 +282,8 @@ class AlphaZeroPlayer:
                     # two or more disjoint wins it is lost either way
                     action = int(np.flatnonzero(theirs)[0])
         if action is None:
-            if self.tree_reuse:
-                if carry is not None:
-                    pi, carry = self._search_resume(carry, turn_number)
-                else:
-                    pi, carry = self._search_fresh(state, turn_number)
-            else:
-                pi = self._search(state, turn_number)
+            pi, carry = self._search(None if carry is not None else state,
+                                     turn_number, carry)
             action = int(np.argmax(pi))
         if self.tree_reuse:
             # carry the tree through OUR move (a guard move may hit an

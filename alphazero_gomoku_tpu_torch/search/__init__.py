@@ -2,15 +2,14 @@
 
 from alphazero_gomoku_tpu_torch.search.gumbel import (  # noqa: F401
     halving_schedule,
-    run_gumbel_mcts,
 )
-from alphazero_gomoku_tpu_torch.search.tree import (  # noqa: F401
-    MCTSConfig,
-    run_mcts_with_q,
-)
+from alphazero_gomoku_tpu_torch.search.tree import MCTSConfig  # noqa: F401
 from alphazero_gomoku_tpu_torch.search.tree_packed import (  # noqa: F401
     PackedCarry,
+    SearchResult,
     init_packed_carry,
     packed_advance_root,
     packed_carry_from_numpy,
+    run_mcts_with_q,
+    run_search,
 )

@@ -17,21 +17,20 @@ improvement by planning with Gumbel", Danihelka et al., ICLR 2022):
 
 No Dirichlet noise: exploration is the root's Gumbel sample.  The JAX
 module's XLA search is not ported, by design: the packed search serves every
-batch size (``search/tree.py:run_mcts_with_q``), and
-:func:`run_gumbel_mcts` runs it
-(``search/tree_packed.py:run_gumbel_packed``), which the JAX package holds
-equal to its XLA search.  The completed-Q and improved-policy math of that
-module is written here for rows of the packed layout.
+batch size (``search/tree_packed.py``: ``run_search`` with
+``search="gumbel"``), which the JAX package holds equal to its XLA search.
+The halving schedule, completed-Q and improved-policy math of that module is
+written here for rows of the packed layout.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, Tuple
 
 import torch
 
-from alphazero_gomoku_tpu_torch.ops.tree_kernels import KERNELS, NEG_INF, TreeOps
-from alphazero_gomoku_tpu_torch.search.tree import EvalFn, MCTSConfig
+from alphazero_gomoku_tpu_torch.ops.tree_kernels import NEG_INF
+from alphazero_gomoku_tpu_torch.search.tree import MCTSConfig
 
 
 def halving_schedule(n_simulations: int,
@@ -102,22 +101,3 @@ def improved_policy(logits: torch.Tensor, n: torch.Tensor, w: torch.Tensor,
     """``softmax(logits + sigma(completed Q))`` over legal actions ``[B, A]``."""
     scores = logits + _sigma(completed_q(n, w, signed_priors, value), n, cfg)
     return torch.softmax(torch.where(legal, scores, NEG_INF), dim=-1)
-
-
-def run_gumbel_mcts(env, cfg: MCTSConfig, eval_fn: EvalFn, net_params,
-                    root_states, generator: Optional[torch.Generator] = None,
-                    uniforms: Optional[torch.Tensor] = None,
-                    ops: TreeOps = KERNELS):
-    """Batched Gumbel search: ``(pi_target [B, A], root_q [B], action [B])``.
-
-    ``pi_target`` is the improved policy (the training target), ``action``
-    the sequential-halving winner (the move self-play plays, with no
-    temperature sampling), ``root_q`` the mean backed-up root value.  The
-    root's Gumbel uniforms ``[B, A]`` are ``uniforms`` when given (tests
-    inject the JAX package's draw), else a draw from ``generator``.
-    ``ops`` picks the tree functions: the kernel wrappers, or
-    ``tree_kernels.PLAIN``.
-    """
-    from alphazero_gomoku_tpu_torch.search.tree_packed import run_gumbel_packed
-    return run_gumbel_packed(env, cfg, eval_fn, net_params, root_states,
-                             generator, uniforms=uniforms, ops=ops)

@@ -1,12 +1,12 @@
-"""Search configuration, root priors and noise, and the search entry point.
+"""Search configuration, root priors and noise.
 
 Counterpart of the parts of ``alphazero_gomoku_tpu/search/tree.py`` that the
 packed search uses: ``MCTSConfig``, ``symmetric_dirichlet``,
-``_masked_priors``, ``_signed_priors``, ``terminal_leaf_value``,
-``root_signed_priors`` and ``run_mcts_with_q``.  The XLA array-tree search of
-that module is not ported, by design: the packed search
-(``search/tree_packed.py``) serves every batch size, the players' batch of 1
-included (see :func:`run_mcts_with_q`).
+``_masked_priors``, ``_signed_priors``, ``terminal_leaf_value`` and
+``root_signed_priors``.  That module's entry point, ``run_mcts_with_q``, is
+``search/tree_packed.py``'s.  Its XLA array-tree search is not ported, by
+design: the packed search serves every batch size, the players' batch of 1
+included (see ``tree_packed.run_mcts_with_q``).
 
 Search semantics (the JAX module's header lists their sources):
   - PUCT score ``W/(1+N) + cpuct * P * sqrt(sum N)/(1+N)``, illegal actions
@@ -30,7 +30,6 @@ from typing import Any, Callable, Optional, Tuple
 
 import torch
 
-from alphazero_gomoku_tpu_torch.ops.tree_kernels import KERNELS, TreeOps
 from alphazero_gomoku_tpu_torch.utils.profiling import trace_annotation
 
 EvalFn = Callable[[Any, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
@@ -53,7 +52,7 @@ class MCTSConfig:
     ``leaves_per_sim = k > 1`` runs k-leaf virtual-loss PUCT: each macro
     step walks k leaves in turn (a virtual loss on each path steers the next
     walk away), evaluates them in one network call of ``k * B`` boards and
-    then backs them up (``tree_packed.run_mcts_packed_with_tree``).
+    then backs them up (``tree_packed._run_puct``).
 
     ``reuse_budget = R > 0`` turns on cross-move subtree reuse: the caller
     threads the search's ``PackedCarry`` through
@@ -217,36 +216,3 @@ def root_signed_priors(env, cfg: MCTSConfig, eval_fn: EvalFn, net_params,
         priors = torch.where(gate, noised, priors)
 
     return torch.where(root_legal > 0, priors, -1.0)
-
-
-# ----------------------------------------------------------------------
-# entry point
-# ----------------------------------------------------------------------
-def run_mcts_with_q(env, cfg: MCTSConfig, eval_fn: EvalFn, net_params,
-                    root_states, move_numbers: torch.Tensor,
-                    generator: Optional[torch.Generator] = None,
-                    noise: Optional[torch.Tensor] = None,
-                    ops: TreeOps = KERNELS):
-    """Batched search: ``(pi [B, A], root_q [B])``; ``ops`` picks the tree
-    functions (the kernel wrappers, or ``tree_kernels.PLAIN``).
-
-    ``cfg.search == "gumbel"`` runs Gumbel sequential halving
-    (``search/gumbel.py``), whose ``pi`` is the improved-policy target; it
-    draws its root Gumbel noise from ``generator`` and ignores
-    ``move_numbers`` and ``noise``.
-
-    Every batch size runs the packed search.  The JAX package sends batches
-    below 8 to its XLA array tree because its Pallas kernels need 8 lanes;
-    the two are bit-identical there (``tests/test_tree_kernels.py``), and the
-    CUDA kernels have no lane floor, so the port needs no second search.
-    """
-    if cfg.search == "gumbel":
-        from alphazero_gomoku_tpu_torch.search.gumbel import run_gumbel_mcts
-        pi, root_q, _ = run_gumbel_mcts(env, cfg, eval_fn, net_params,
-                                        root_states, generator,
-                                        ops=ops)
-        return pi, root_q
-    from alphazero_gomoku_tpu_torch.search.tree_packed import run_mcts_packed
-    return run_mcts_packed(env, cfg, eval_fn, net_params, root_states,
-                           move_numbers, generator, noise=noise,
-                           ops=ops)

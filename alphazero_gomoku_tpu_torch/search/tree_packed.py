@@ -9,6 +9,12 @@ round-parallel ``one_round`` (``:519-607``).  The JAX version runs the
 simulations in a ``lax.scan``; here they are a Python loop, and the tree and
 the node-state stack are updated in place.
 
+Every search goes through :func:`run_search`, which runs ``cfg.search``
+(``_run_puct`` or ``_run_gumbel``) from a fresh tree or from a carried one;
+:func:`run_mcts_with_q` is its ``(pi, root_q)`` from a fresh tree, as the
+JAX package's entry point returns.  Both serial loops run each simulation's
+steps 2-4 in ``_simulate``.
+
 Per simulation:
   1. The walk: ``select_walk`` (PUCT) or ``gumbel_select_walk`` (Gumbel:
      forced root action, then the deterministic non-root rule) to an
@@ -224,41 +230,93 @@ def _write_parent(carry: PackedCarry, slot: int, leaf: torch.Tensor,
     carry.parent_action[:, slot] = action
 
 
-def run_mcts_packed(env, cfg: MCTSConfig, eval_fn: EvalFn, net_params,
+def _simulate(env, cfg: MCTSConfig, eval_fn: EvalFn, net_params,
+              ops: TreeOps, carry: PackedCarry, layout, lanes: torch.Tensor,
+              slot: int, walked, parents: bool):
+    """Steps 2-4 of one serial simulation from its walk's outputs
+    ``walked``: expand with the slot's writes (the sidecar too, with
+    ``parents``), evaluate, back up into ``slot``."""
+    leaf, action, pnodes, pacts, plen = walked
+    write_state, expanding = _expand_slot(env, carry, lanes, slot, leaf,
+                                          action, parents)
+    with trace_annotation("az.eval"):
+        leaf_value, priors = _evaluate(env, cfg, eval_fn, net_params,
+                                       write_state)
+    with trace_annotation("az.backup"):
+        ops.backup_paths(carry.packed, pnodes, pacts, plen, leaf_value,
+                         expanding, slot, layout, priors, write_state.done)
+
+
+class SearchResult(NamedTuple):
+    """What :func:`run_search` returns."""
+
+    # [B, A]: visit counts (PUCT) or the improved-policy target (Gumbel)
+    pi: torch.Tensor
+    root_q: torch.Tensor             # [B]
+    action: Optional[torch.Tensor]   # [B] halving winner (Gumbel); None (PUCT)
+    carry: PackedCarry               # the searched tree
+
+
+def run_search(env, cfg: MCTSConfig, eval_fn: EvalFn, net_params,
+               root_states, move_numbers: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None, *,
+               carry: Optional[PackedCarry] = None,
+               noise: Optional[torch.Tensor] = None,
+               uniforms: Optional[torch.Tensor] = None,
+               ops: TreeOps = KERNELS) -> SearchResult:
+    """The batched search of ``cfg.search`` on the packed layout.
+
+    PUCT (``"puct"``) gives the root's visit-count policy and reads
+    ``move_numbers`` (``[B]``, the Dirichlet gate) and ``noise`` (``[B,
+    A]``, in place of the Dirichlet draw from ``generator``).  Gumbel
+    (``"gumbel"``) gives the improved-policy target and the halving
+    winner, and reads ``uniforms`` (``[B, A]`` in ``[1e-12, 1)``, in place
+    of its root draw from ``generator``); it ignores ``move_numbers`` and
+    ``noise``.  Tests inject the JAX package's draws through ``noise`` and
+    ``uniforms``.
+
+    ``carry=None`` searches a fresh tree.  With ``cfg.reuse_budget > 0``,
+    ``carry`` is the tree of the previous move after
+    :func:`packed_advance_root` (or :func:`init_packed_carry`'s at move 0);
+    it is not changed.  ``root_states`` defaults to the carried roots; the
+    self-play runner passes its own game states, which equal them on live
+    lanes.  The root's priors, done flag, noise (PUCT) and value (Gumbel)
+    are computed anew each move; the carried root keeps its N, W and child
+    links.  ``ops`` picks the tree functions: the kernel wrappers, or
+    ``tree_kernels.PLAIN`` to run the plain versions on any device.
+    """
+    if cfg.search == "gumbel":
+        return _run_gumbel(env, cfg, eval_fn, net_params, root_states,
+                           generator, uniforms, ops, carry)
+    return _run_puct(env, cfg, eval_fn, net_params, root_states,
+                     move_numbers, generator, noise, ops, carry)
+
+
+def run_mcts_with_q(env, cfg: MCTSConfig, eval_fn: EvalFn, net_params,
                     root_states, move_numbers: torch.Tensor,
                     generator: Optional[torch.Generator] = None,
                     noise: Optional[torch.Tensor] = None,
                     ops: TreeOps = KERNELS):
-    """Batched PUCT on the packed layout: ``(pi [B, A], root_q [B])``.
+    """:func:`run_search` from a fresh tree, as ``(pi [B, A], root_q
+    [B])``: the JAX package's entry point (``search/tree.py`` there).
 
-    ``noise`` ([B, A]) replaces the Dirichlet draw from ``generator`` (tests
-    inject the JAX package's draw).  ``ops`` picks the tree functions: the
-    kernel wrappers, or ``tree_kernels.PLAIN`` to run the plain versions on
-    any device.
+    Every batch size runs the packed search.  The JAX package sends batches
+    below 8 to its XLA array tree because its Pallas kernels need 8 lanes;
+    the two are bit-identical there (``tests/test_tree_kernels.py``), and the
+    CUDA kernels have no lane floor, so the port needs no second search.
     """
-    pi, root_q, _ = run_mcts_packed_with_tree(
-        env, cfg, eval_fn, net_params, root_states, move_numbers, generator,
-        noise=noise, ops=ops)
+    pi, root_q, _, _ = run_search(env, cfg, eval_fn, net_params, root_states,
+                                  move_numbers, generator, noise=noise,
+                                  ops=ops)
     return pi, root_q
 
 
-def run_mcts_packed_with_tree(env, cfg: MCTSConfig, eval_fn: EvalFn,
-                              net_params, root_states,
-                              move_numbers: torch.Tensor,
-                              generator: Optional[torch.Generator] = None,
-                              noise: Optional[torch.Tensor] = None,
-                              ops: TreeOps = KERNELS,
-                              carry: Optional[PackedCarry] = None):
-    """:func:`run_mcts_packed` that also returns the searched tree:
-    ``(pi, root_q, PackedCarry)``.
-
-    With ``cfg.reuse_budget > 0``, ``carry`` is the tree of the previous
-    move after :func:`packed_advance_root` (or :func:`init_packed_carry`'s
-    at move 0); it is not changed.  ``root_states`` defaults to the carried
-    roots; the self-play runner passes its own game states, which equal
-    them on live lanes.  Root priors and noise are computed anew each move;
-    the carried root keeps its N, W and child links.
-    """
+def _run_puct(env, cfg: MCTSConfig, eval_fn: EvalFn, net_params, root_states,
+              move_numbers: torch.Tensor,
+              generator: Optional[torch.Generator],
+              noise: Optional[torch.Tensor], ops: TreeOps,
+              carry: Optional[PackedCarry]) -> SearchResult:
+    """PUCT: one walk a simulation, or k-leaf macro steps."""
     if cfg.reuse_budget > 0 and cfg.leaves_per_sim > 1:
         raise ValueError("subtree reuse is not supported with "
                          "leaves_per_sim > 1")
@@ -287,17 +345,8 @@ def run_mcts_packed_with_tree(env, cfg: MCTSConfig, eval_fn: EvalFn,
     k = cfg.leaves_per_sim
     if k == 1:
         for sim in range(cfg.n_simulations):
-            slot = sim + slot_base
-            leaf, action, pnodes, pacts, plen = walk()
-            write_state, expanding = _expand_slot(
-                env, carry, lanes, slot, leaf, action, cfg.reuse_budget > 0)
-            with trace_annotation("az.eval"):
-                leaf_value, priors = _evaluate(env, cfg, eval_fn, net_params,
-                                               write_state)
-            with trace_annotation("az.backup"):
-                ops.backup_paths(packed, pnodes, pacts, plen, leaf_value,
-                                 expanding, slot, layout, priors,
-                                 write_state.done)
+            _simulate(env, cfg, eval_fn, net_params, ops, carry, layout,
+                      lanes, sim + slot_base, walk(), cfg.reuse_budget > 0)
     else:
         zeros = torch.zeros(batch, dtype=torch.float32, device=dev)
         for step in range(cfg.n_simulations // k):
@@ -342,7 +391,7 @@ def run_mcts_packed_with_tree(env, cfg: MCTSConfig, eval_fn: EvalFn,
                      uniform)
     root_q = packed[:, SL_W, :a].sum(dim=-1) / torch.clamp(totals[:, 0],
                                                            min=1.0)
-    return pi, root_q, carry
+    return SearchResult(pi, root_q, None, carry)
 
 
 # ----------------------------------------------------------------------
@@ -355,41 +404,19 @@ def _top_k(scores: torch.Tensor, k: int) -> torch.Tensor:
     return order[:, :k].to(torch.int32)
 
 
-def run_gumbel_packed(env, cfg: MCTSConfig, eval_fn: EvalFn, net_params,
-                      root_states,
-                      generator: Optional[torch.Generator] = None,
-                      uniforms: Optional[torch.Tensor] = None,
-                      ops: TreeOps = KERNELS):
-    """Gumbel sequential halving on the packed layout:
-    ``(pi_target [B, A], root_q [B], action [B])``.
-
-    ``uniforms`` ([B, A] in [1e-12, 1)) replaces the draw from ``generator``
-    (tests inject the JAX package's draw).  ``ops`` picks the tree functions.
-    """
-    pi, root_q, action, _ = run_gumbel_packed_with_tree(
-        env, cfg, eval_fn, net_params, root_states, generator,
-        uniforms=uniforms, ops=ops)
-    return pi, root_q, action
-
-
-def run_gumbel_packed_with_tree(env, cfg: MCTSConfig, eval_fn: EvalFn,
-                                net_params, root_states,
-                                generator: Optional[torch.Generator] = None,
-                                uniforms: Optional[torch.Tensor] = None,
-                                ops: TreeOps = KERNELS,
-                                carry: Optional[PackedCarry] = None):
-    """:func:`run_gumbel_packed` that also returns the searched tree:
-    ``(pi_target, root_q, action, PackedCarry)``.
+def _run_gumbel(env, cfg: MCTSConfig, eval_fn: EvalFn, net_params,
+                root_states, generator: Optional[torch.Generator],
+                uniforms: Optional[torch.Tensor], ops: TreeOps,
+                carry: Optional[PackedCarry]) -> SearchResult:
+    """Gumbel sequential halving; ``root_q`` is the mean backed-up root
+    value.
 
     The root's value estimate rides the meta row's column 1, where the walk
     reads it for the completed Q.  Each phase of the halving schedule runs
     its simulations serially (``one_sim`` of the JAX package), or, with
     ``cfg.gumbel_round_parallel``, in rounds of one walk per surviving root
     action (``fan = m_k`` lanes per tree) and one network call, after which
-    the backups are replayed in slot order (``one_round``).  ``carry``
-    (subtree reuse, ``cfg.reuse_budget > 0``) is taken as by
-    :func:`run_mcts_packed_with_tree`; the root's priors, done flag and
-    value are evaluated anew each move.
+    the backups are replayed in slot order (``one_round``).
     """
     with trace_annotation("az.root"):
         carry, root_states, slot = _begin(env, cfg, root_states, carry)
@@ -478,17 +505,9 @@ def run_gumbel_packed_with_tree(env, cfg: MCTSConfig, eval_fn: EvalFn,
                 slot += m_k
         else:
             for j in range(m_k * visits):
-                leaf, action, pnodes, pacts, plen = walk(
-                    ranked[:, j % m_k:j % m_k + 1], 1)
-                write_state, expanding = _expand_slot(
-                    env, carry, lanes, slot, leaf, action, True)
-                with trace_annotation("az.eval"):
-                    leaf_value, priors = _evaluate(env, cfg, eval_fn,
-                                                   net_params, write_state)
-                with trace_annotation("az.backup"):
-                    ops.backup_paths(packed, pnodes, pacts, plen, leaf_value,
-                                     expanding, slot, layout, priors,
-                                     write_state.done)
+                _simulate(env, cfg, eval_fn, net_params, ops, carry, layout,
+                          lanes, slot, walk(ranked[:, j % m_k:j % m_k + 1], 1),
+                          True)
                 slot += 1
 
         with trace_annotation("az.halve"):
@@ -505,7 +524,7 @@ def run_gumbel_packed_with_tree(env, cfg: MCTSConfig, eval_fn: EvalFn,
     pi_target = improved_policy(logits, n_root, w_root, packed[:, SL_P, :a],
                                 v0, legal, cfg)
     root_q = w_root.sum(dim=-1) / torch.clamp(n_root.sum(dim=-1), min=1.0)
-    return pi_target, root_q, action, carry
+    return SearchResult(pi_target, root_q, action, carry)
 
 
 # ----------------------------------------------------------------------

@@ -40,8 +40,7 @@ from alphazero_gomoku_tpu_torch.search.tree import EvalFn, MCTSConfig
 from alphazero_gomoku_tpu_torch.search.tree_packed import (
     init_packed_carry,
     packed_advance_root,
-    run_gumbel_packed_with_tree,
-    run_mcts_packed_with_tree,
+    run_search,
 )
 
 OPENING_RADIUS = 4  # the centre 9x9
@@ -105,16 +104,10 @@ def sides_half(env, side_p1: Side, side_p2: Side, n_games: int, seed: int,
                if s.cfg.reuse_budget > 0 else None for s in sides]
 
     def move(i, states):
-        side, carry = sides[i], carries[i]
-        cfg = side.cfg
-        if cfg.search == "gumbel":
-            pi, _, winner, carry = run_gumbel_packed_with_tree(
-                env, cfg, side.eval_fn, side.bundle, states, gen,
-                uniforms=uniforms, ops=side.ops, carry=carry)
-        else:
-            pi, _, carry = run_mcts_packed_with_tree(
-                env, cfg, side.eval_fn, side.bundle, states, zeros, gen,
-                ops=side.ops, carry=carry)
+        side = sides[i]
+        pi, _, winner, carry = run_search(
+            env, side.cfg, side.eval_fn, side.bundle, states, zeros, gen,
+            carry=carries[i], uniforms=uniforms, ops=side.ops)
         if carries[i] is not None:
             carries[i] = carry
         return winner if side.play_winner else torch.argmax(pi, dim=-1)

@@ -86,17 +86,12 @@ from alphazero_gomoku_tpu_torch.device import resolve_device
 from alphazero_gomoku_tpu_torch.games.gomoku import where_state
 from alphazero_gomoku_tpu_torch.ops.symmetry import expand_symmetries_batch_np
 from alphazero_gomoku_tpu_torch.ops.tree_kernels import KERNELS, TreeOps
-from alphazero_gomoku_tpu_torch.search.gumbel import run_gumbel_mcts
-from alphazero_gomoku_tpu_torch.search.tree import (
-    EvalFn,
-    MCTSConfig,
-    run_mcts_with_q,
-)
+from alphazero_gomoku_tpu_torch.search.tree import EvalFn, MCTSConfig
 from alphazero_gomoku_tpu_torch.search.tree_packed import (
     init_packed_carry,
     packed_advance_root,
-    run_gumbel_packed_with_tree,
-    run_mcts_packed_with_tree,
+    run_mcts_with_q,
+    run_search,
 )
 from alphazero_gomoku_tpu_torch.utils.profiling import trace_annotation
 
@@ -264,25 +259,20 @@ def play_games(env, cfg: SelfPlayConfig, eval_fn: EvalFn, net_params,
             mcfg = cfg.mcts if full else cheap_mcts
             legal = env.legal_mask(states)
         with trace_annotation("az.search"):
-            if gumbel and reuse:
-                pi, root_q, winner, tree = run_gumbel_packed_with_tree(
-                    env, mcfg, eval_fn, net_params, states, generator,
-                    carry=tree, ops=ops)
-            elif gumbel:
-                pi, root_q, winner = run_gumbel_mcts(
-                    env, mcfg, eval_fn, net_params, states, generator,
-                    ops=ops)
+            move_nums = None if gumbel else torch.full(
+                (batch,), t, dtype=torch.int32, device=dev)
+            if gumbel or reuse:
+                pi, root_q, winner, tree = run_search(
+                    env, mcfg, eval_fn, net_params, states, move_nums,
+                    generator, carry=tree, ops=ops)
+                if not reuse:
+                    tree = None     # nothing carries it: free it now
             else:
-                move_nums = torch.full((batch,), t, dtype=torch.int32,
-                                       device=dev)
-                if reuse:
-                    pi, root_q, tree = run_mcts_packed_with_tree(
-                        env, mcfg, eval_fn, net_params, states, move_nums,
-                        generator, carry=tree, ops=ops)
-                else:
-                    pi, root_q = run_mcts_with_q(
-                        env, mcfg, eval_fn, net_params, states, move_nums,
-                        generator, ops=ops)
+                # through this module's name, which
+                # benchmark/tests/test_bench_run.py patches
+                pi, root_q = run_mcts_with_q(
+                    env, mcfg, eval_fn, net_params, states, move_nums,
+                    generator, ops=ops)
         with trace_annotation("az.move"):
             if gumbel:
                 # the halving winner is the move: no temperature sampling
@@ -480,14 +470,10 @@ def play_games_continuous(env, cfg: SelfPlayConfig, eval_fn: EvalFn,
             mcfg = cfg.mcts if full else cheap_mcts
             legal = env.legal_mask(states)
         with trace_annotation("az.search"):
-            if gumbel:
-                pi, root_q, actions = run_gumbel_mcts(env, mcfg, eval_fn,
-                                                      net_params, states,
-                                                      generator)
-            else:
-                pi, root_q = run_mcts_with_q(env, mcfg, eval_fn, net_params,
+            # the tree goes at once: every ply searches a fresh one
+            pi, root_q, actions = run_search(env, mcfg, eval_fn, net_params,
                                              states, states.move_count,
-                                             generator)
+                                             generator)[:3]
         with trace_annotation("az.move"):
             if not gumbel:
                 temp = torch.clamp(1.0 - states.move_count.to(torch.float32)

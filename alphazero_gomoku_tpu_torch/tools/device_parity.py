@@ -39,8 +39,7 @@ import torch
 from alphazero_gomoku_tpu_torch.device import resolve_device
 from alphazero_gomoku_tpu_torch.games import make_env
 from alphazero_gomoku_tpu_torch.models import AZModel, make_inference
-from alphazero_gomoku_tpu_torch.search import MCTSConfig
-from alphazero_gomoku_tpu_torch.search.tree import run_mcts_with_q
+from alphazero_gomoku_tpu_torch.search import MCTSConfig, run_search
 from alphazero_gomoku_tpu_torch.tools.backends import backend
 
 INFER = "int8t"
@@ -84,8 +83,8 @@ def search(env, cfg, sides, bundle, states, move_no, seed):
     for name, (eval_fn, ops) in sides.items():
         gen = torch.Generator(device=dev).manual_seed(seed)
         t0 = time.time()
-        pi, q = run_mcts_with_q(env, cfg, eval_fn, bundle, states, moves,
-                                gen, ops=ops)
+        pi, q, _, _ = run_search(env, cfg, eval_fn, bundle, states, moves,
+                                 gen, ops=ops)
         _sync(dev)
         out[name] = (pi.cpu().numpy(), q.cpu().numpy(), time.time() - t0)
     return out

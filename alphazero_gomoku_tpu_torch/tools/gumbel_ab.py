@@ -2,10 +2,10 @@
 
 Counterpart of the JAX repo's ``tools/gumbel_ab.py``: an arena (``ab_arena``)
 between two searches of the SAME checkpoint.  The Gumbel side runs
-``--gumbel-sims`` simulations a move (``run_gumbel_packed``; with
+``--gumbel-sims`` simulations a move (``run_search``; with
 ``--round-parallel`` each halving round in one walk and one forward) and
 plays its halving winner; the PUCT side runs ``--puct-sims``
-(``run_mcts_with_q``'s packed search, first-play urgency ``--fpu``) and
+(``run_search``'s PUCT, first-play urgency ``--fpu``) and
 plays its visit argmax.  If ``gumbel@N`` matches ``puct@kN``, self-play
 buys k times the moves at equal strength (Danihelka et al., ICLR 2022):
 bench config #6's premise.

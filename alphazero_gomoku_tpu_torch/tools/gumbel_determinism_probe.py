@@ -27,8 +27,7 @@ import torch
 from alphazero_gomoku_tpu_torch.device import resolve_device
 from alphazero_gomoku_tpu_torch.games import make_env
 from alphazero_gomoku_tpu_torch.models import AZModel, make_inference
-from alphazero_gomoku_tpu_torch.search import MCTSConfig
-from alphazero_gomoku_tpu_torch.search.gumbel import run_gumbel_mcts
+from alphazero_gomoku_tpu_torch.search import MCTSConfig, run_search
 from alphazero_gomoku_tpu_torch.tools.device_parity import (
     INFER,
     make_sides,
@@ -56,8 +55,9 @@ def main(argv=None, device=None):
     def run(side):
         fn, ops = sides[side]
         gen = torch.Generator(device=dev).manual_seed(7)
-        out = run_gumbel_mcts(env, cfg, fn, bundle, states, gen, ops=ops)
-        return [x.cpu().numpy() for x in out]
+        pi, root_q, action, _ = run_search(env, cfg, fn, bundle, states,
+                                           generator=gen, ops=ops)
+        return [x.cpu().numpy() for x in (pi, root_q, action)]
 
     outs = []
     for r in range(n_rep):

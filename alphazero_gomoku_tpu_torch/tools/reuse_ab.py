@@ -3,7 +3,7 @@
 Counterpart of the JAX repo's ``tools/reuse_ab.py``: an arena (``ab_arena``)
 between two searches of the SAME checkpoint at equal simulations a move.
 The reuse side carries a ``PackedCarry`` through
-``run_mcts_packed_with_tree`` (``MCTSConfig.reuse_budget``) and re-roots it
+``run_search`` (``MCTSConfig.reuse_budget``) and re-roots it
 with ``packed_advance_root`` at every ply, its own and the opponent's, as
 the players do; the other side searches a fresh tree every move.  The JAX
 tool runs the reuse side on its XLA array tree, which that package holds

@@ -9,7 +9,7 @@ broken, and the other way round.
 
 The JAX tool searches a batch of one on its XLA array tree (its Pallas
 kernels need 8 lanes); here the search is the packed PUCT search
-(``run_mcts_packed``: ``select_walk`` and ``backup_paths`` on the card),
+(``run_search``: ``select_walk`` and ``backup_paths`` on the card),
 which the JAX package holds bit-identical to that tree.  ``--game pente``
 reads capture planes when the checkpoint's net does (``in_channels`` 5).
 
@@ -31,8 +31,7 @@ import torch
 from alphazero_gomoku_tpu_torch.device import resolve_device
 from alphazero_gomoku_tpu_torch.games import make_env
 from alphazero_gomoku_tpu_torch.models import AZModel, make_eval_fn
-from alphazero_gomoku_tpu_torch.search import MCTSConfig
-from alphazero_gomoku_tpu_torch.search.tree_packed import run_mcts_packed
+from alphazero_gomoku_tpu_torch.search import MCTSConfig, run_search
 from alphazero_gomoku_tpu_torch.tools.tactics_suites import suite_for
 
 
@@ -109,8 +108,8 @@ def main(argv=None, device=None):
             state = env.from_board(b, to_move)
         probs, value = eval_fn(bundle, env.encode(state))
         probs = (probs * env.legal_mask(state))[0].cpu().numpy()
-        pi = run_mcts_packed(env, cfg, eval_fn, bundle, state,
-                             zeros)[0][0].cpu().numpy()
+        pi = run_search(env, cfg, eval_fn, bundle, state,
+                        zeros).pi[0].cpu().numpy()
 
         def top(vec):
             a = int(np.argmax(vec))

@@ -226,19 +226,12 @@ from alphazero_gomoku_tpu_torch.repro import envelope as ev
 from alphazero_gomoku_tpu_torch.repro import width1_slice_write as ws
 from alphazero_gomoku_tpu_torch.search import (
     MCTSConfig,
+    halving_schedule,
     init_packed_carry,
     packed_advance_root,
-)
-from alphazero_gomoku_tpu_torch.search.gumbel import (
-    halving_schedule,
-    run_gumbel_mcts,
+    run_search,
 )
 from alphazero_gomoku_tpu_torch.search.pure_mcts import winning_cells
-from alphazero_gomoku_tpu_torch.search.tree_packed import (
-    run_gumbel_packed_with_tree,
-    run_mcts_packed,
-    run_mcts_packed_with_tree,
-)
 from alphazero_gomoku_tpu_torch.selfplay import (
     SelfPlayConfig,
     collect_examples,
@@ -1124,8 +1117,8 @@ def main() -> int:
         # GROW_SIMS, and PUCT@400's own tree as its last simulation walks it
         for sims in (GROW_SIMS, SIMS - 1):
             cfg = dataclasses.replace(grow, n_simulations=sims)
-            tree = run_mcts_packed_with_tree(env, cfg, eval_fn, net, states,
-                                             moves, gen)[2].packed
+            tree = run_search(env, cfg, eval_fn, net, states, moves,
+                              gen).carry.packed
             log(f"grew the tree: {sims} simulations, packed "
                 f"{tuple(tree.shape)}")
             sel, walk = hold_select(tree, layout, grow.cpuct, depth, floor)
@@ -1158,8 +1151,8 @@ def main() -> int:
         out = {}
         for label, ops in (("kernels", tk.KERNELS), ("plain", tk.PLAIN)):
             g = phase_gen(args.seed, 104, dev)
-            out[label] = run_mcts_packed(env, cfg64, eval_fn, net, states,
-                                         moves, g, ops=ops)
+            out[label] = run_search(env, cfg64, eval_fn, net, states, moves,
+                                    g, ops=ops)
         if not torch.equal(out["kernels"][0], out["plain"][0]):
             raise AssertionError("search pi: kernels != plain")
         qdiff = float((out["kernels"][1] - out["plain"][1]).abs().max())
@@ -1857,8 +1850,8 @@ def gumbel_phases(args, env, net_cfg, weights, net, dev, rows, smi):
         floor = latency_floor()
         gen = phase_gen(args.seed, 6, dev)
         states = random_states(env, BATCH, 4, gen, dev)
-        tree = run_gumbel_packed_with_tree(env, GUMBEL_MCTS, fused_eval,
-                                           folded, states, gen)[3].packed
+        tree = run_search(env, GUMBEL_MCTS, fused_eval, folded, states,
+                          generator=gen).carry.packed
         log(f"grew the tree: Gumbel@{GUMBEL_SIMS} m={GUMBEL_M}, packed "
             f"{tuple(tree.shape)}")
         legal = tree[:, tk.SL_P, :layout.num_actions] >= 0
@@ -1881,9 +1874,9 @@ def gumbel_phases(args, env, net_cfg, weights, net, dev, rows, smi):
         for move in range(REUSE_MOVES):
             ops = (tk.TreeOps(tk.select_walk, tk.backup_paths, last)
                    if move == REUSE_MOVES - 1 else tk.KERNELS)
-            _, _, act, carry = run_gumbel_packed_with_tree(
-                env, reuse, fused_eval, folded, states, gen, ops=ops,
-                carry=carry)
+            _, _, act, carry = run_search(
+                env, reuse, fused_eval, folded, states, generator=gen,
+                ops=ops, carry=carry)
             if move < REUSE_MOVES - 1:
                 act = torch.where(states.done, 0, act)
                 carry = packed_advance_root(env, reuse, carry, act)
@@ -1969,8 +1962,8 @@ def gumbel_phases(args, env, net_cfg, weights, net, dev, rows, smi):
         out = {}
         for label, ops in (("kernels", tk.KERNELS), ("plain", tk.PLAIN)):
             g = phase_gen(args.seed, 108, dev)
-            out[label] = run_gumbel_mcts(env, GUMBEL_MCTS, fused_eval, folded,
-                                         states, g, ops=ops)
+            out[label] = run_search(env, GUMBEL_MCTS, fused_eval, folded,
+                                    states, generator=g, ops=ops)
         for name, k, p in zip(("pi_target", "root_q", "action"),
                               out["kernels"], out["plain"]):
             if not torch.equal(k, p):
@@ -2000,8 +1993,8 @@ def gumbel_phases(args, env, net_cfg, weights, net, dev, rows, smi):
                                 plain_eval(torch.float32)),
                                ("float64", plain_eval(torch.float64))):
             g = phase_gen(args.seed, 308, dev)
-            out[label] = run_gumbel_mcts(env, GUMBEL_MCTS, eval_fn, folded,
-                                         states, g)
+            out[label] = run_search(env, GUMBEL_MCTS, eval_fn, folded,
+                                    states, generator=g)
         kern, plain, f64 = (out[k][2] for k in ("fused_tower",
                                                 "fused_tower_plain",
                                                 "float64"))
@@ -2185,8 +2178,8 @@ def int8_phases(args, env, net_cfg, weights, net, dev, rows, smi):
                 ("int8_tower", tower_eval, packed),
                 ("int8_apply", q8.make_int8_eval_fn(net_cfg), q)):
             g = phase_gen(args.seed, 113, dev)
-            out[label] = run_mcts_packed(env, cfg64, eval_fn, bundle, states,
-                                         moves, g)
+            out[label] = run_search(env, cfg64, eval_fn, bundle, states,
+                                    moves, g)
         for name, k, p in zip(("pi", "root_q"), out["int8_tower"],
                               out["int8_apply"]):
             if not torch.equal(k, p):
@@ -2258,8 +2251,8 @@ def extension_phases(args, env, net_cfg, weights, net, dev, rows, smi,
         # GROW_SIMS, and PUCT@400 k-leaf's own tree at its last macro step
         for sims in (GROW_SIMS, SIMS - KLEAF):
             cfg = dataclasses.replace(grow, n_simulations=sims)
-            tree = run_mcts_packed_with_tree(env, cfg, eval_fn, net, states,
-                                             moves, gen)[2].packed
+            tree = run_search(env, cfg, eval_fn, net, states, moves,
+                              gen).carry.packed
             _, action, pnodes, pacts, plen = tk.select_walk(
                 tree, layout, grow.cpuct, depth)
             expanding = action >= 0
@@ -2303,8 +2296,8 @@ def extension_phases(args, env, net_cfg, weights, net, dev, rows, smi,
         out = {}
         for label, ops in (("kernels", tk.KERNELS), ("plain", tk.PLAIN)):
             g = phase_gen(args.seed, 116, dev)
-            pi, q, tree = run_mcts_packed_with_tree(
-                env, cfg, eval_fn, net, states, moves, g, ops=ops)
+            pi, q, _, tree = run_search(env, cfg, eval_fn, net, states,
+                                        moves, g, ops=ops)
             out[label] = (pi, q, tree.packed)
         for name, k, p in zip(("pi", "root_q", "packed tree"),
                               out["kernels"], out["plain"]):
@@ -2845,14 +2838,14 @@ def pente_phases(args, dev, rows, smi):
         for label, ops, eval_fn in (("kernels", tk.KERNELS, tower_eval),
                                     ("plain", tk.PLAIN, plain_eval)):
             g = phase_gen(args.seed, 323, dev)
-            out[label] = run_mcts_packed_with_tree(
-                env, MAIN_MCTS, eval_fn, packed, states, moves, g, ops=ops)
+            out[label] = run_search(env, MAIN_MCTS, eval_fn, packed, states,
+                                    moves, g, ops=ops)
         for name, k, p in zip(("pi", "root_q"), out["kernels"][:2],
                               out["plain"][:2]):
             if not torch.equal(k, p):
                 raise AssertionError(f"Pente search {name}: kernels != "
                                      f"plain")
-        caps = out["kernels"][2].states.captures
+        caps = out["kernels"].carry.states.captures
         log(f"Pente search: kernels == plain exactly over {PENTE_BATCH} "
             f"lanes (pi, root_q); {int((caps.sum(dim=-1) > 0).sum())} of "
             f"{caps.shape[0] * caps.shape[1]} tree nodes hold captures")
@@ -3129,8 +3122,7 @@ def player_phases(args, net_cfg, weights, dev, rows, smi):
                 player.tree_ops = ops
                 traces.append(player_trace(player, 3))
             (km, ks), (pm, ps) = traces
-            if [n for n, _, _ in ks] != ["_search_fresh", "_search_resume",
-                                         "_search_resume"]:
+            if [n for n, _, _ in ks] != ["fresh", "resume", "resume"]:
                 raise AssertionError(f"searches {[n for n, _, _ in ks]}")
             for (_, kpi, _), (_, ppi, _) in zip(ks, ps):
                 if not (kpi == ppi).all():
@@ -3185,8 +3177,7 @@ def player_phases(args, net_cfg, weights, dev, rows, smi):
                 "backup_paths": 2 * strong.n_simulations})
             for name, n in launches.items():
                 rows[name]["launches_by_path"]["player_alpha2"] = n
-            if [n for n, _, _ in searches] != ["_search_fresh",
-                                               "_search_resume"]:
+            if [n for n, _, _ in searches] != ["fresh", "resume"]:
                 raise AssertionError(f"searches {[n for n, _, _ in searches]}")
             resumed, grown = searches[1][2]
             log(f"player_alpha2: think time {think[0]:.3f} s (fresh), "
@@ -3676,14 +3667,18 @@ def player_trace(player, moves: int, think=None):
     """``moves`` moves of ``player`` (P2) from a stone at the centre, each
     answered by the reply its carried tree expects (``principal_reply``):
     ``(its moves, [(search, pi, (the carry it started from, the carry it
-    returned)), ...])``; appends each move's seconds to ``think``."""
+    returned)), ...])``, a search ``"fresh"`` or ``"resume"``; appends
+    each move's seconds to ``think``."""
     searches = []
-    for name in ("_search_fresh", "_search_resume"):
-        def run(*args, name=name, search=getattr(player, name)):
-            pi, carry = search(*args)
-            searches.append((name, pi, (args[0], carry)))
-            return pi, carry
-        setattr(player, name, run)
+    search = player._search
+
+    def run(state, turn_number, carry=None):
+        pi, grown = search(state, turn_number, carry)
+        searches.append(("fresh", pi, (state, grown)) if carry is None
+                        else ("resume", pi, (carry, grown)))
+        return pi, grown
+
+    player._search = run
     board = np.zeros((BOARD, BOARD), np.int8)
     board[BOARD // 2, BOARD // 2] = 1
     played = []
@@ -3706,9 +3701,9 @@ def gumbel_trace(player, moves: int):
     search = player._search
 
     def run(*args):
-        pi = search(*args)
+        pi, carry = search(*args)
         pis.append(pi)
-        return pi
+        return pi, carry
 
     player._search = run
     board = np.zeros((BOARD, BOARD), np.int8)
@@ -3849,14 +3844,10 @@ def reuse_trace(env, cfg, eval_fn, bundle, states, moves, generator, ops):
     carry = init_packed_carry(env, cfg, states)
     out = []
     for _ in range(REUSE_MOVES):
-        if cfg.search == "gumbel":
-            pi, q, act, carry = run_gumbel_packed_with_tree(
-                env, cfg, eval_fn, bundle, states, generator, ops=ops,
-                carry=carry)
-        else:
-            pi, q, carry = run_mcts_packed_with_tree(
-                env, cfg, eval_fn, bundle, states, moves, generator, ops=ops,
-                carry=carry)
+        pi, q, act, carry = run_search(env, cfg, eval_fn, bundle, states,
+                                       moves, generator, carry=carry,
+                                       ops=ops)
+        if act is None:                 # PUCT: the greedy move
             act = pi.argmax(dim=1)
         act = torch.where(states.done, 0, act)
         out += [pi, q, act, carry.packed, *carry.states, carry.parent,

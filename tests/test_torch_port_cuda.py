@@ -36,17 +36,9 @@ from alphazero_gomoku_tpu_torch.ops import tree_kernels as tk
 from alphazero_gomoku_tpu_torch.repro import envelope as ev
 from alphazero_gomoku_tpu_torch.repro import parent_probe
 from alphazero_gomoku_tpu_torch.repro import width1_slice_write as ws
-from alphazero_gomoku_tpu_torch.search import MCTSConfig
-from alphazero_gomoku_tpu_torch.search.gumbel import (
-    halving_schedule,
-    run_gumbel_mcts,
-)
+from alphazero_gomoku_tpu_torch.search import MCTSConfig, run_search
+from alphazero_gomoku_tpu_torch.search.gumbel import halving_schedule
 from alphazero_gomoku_tpu_torch.search import tree_packed as tp
-from alphazero_gomoku_tpu_torch.search.tree_packed import (
-    run_gumbel_packed_with_tree,
-    run_mcts_packed,
-    run_mcts_packed_with_tree,
-)
 from alphazero_gomoku_tpu_torch.selfplay.runner import (
     SelfPlayConfig,
     play_games,
@@ -109,8 +101,8 @@ def _grown_tree(dev, size=15, batch=64, sims=48, capacity=402, depth=56,
     states = _random_states(env, batch, plies, 1, dev)
     moves = torch.full((batch,), plies, dtype=torch.int32, device=dev)
     g = torch.Generator(device=dev).manual_seed(2)
-    _, _, tree = run_mcts_packed_with_tree(env, mcfg, make_eval_fn(), net,
-                                           states, moves, g)
+    tree = run_search(env, mcfg, make_eval_fn(), net, states, moves,
+                      g).carry
     return mcfg, tk.packed_layout(size * size, capacity), tree.packed
 
 
@@ -237,8 +229,8 @@ def test_search_pi_kernels_equal_plain_and_count_launches():
     for ops in (tk.KERNELS, tk.PLAIN):
         tk.reset_launch_counts()
         g = torch.Generator(device=dev).manual_seed(7)
-        pis.append(run_mcts_packed(env, mcfg, make_eval_fn(), net, states,
-                                   moves, g, ops=ops)[0])
+        pis.append(run_search(env, mcfg, make_eval_fn(), net, states,
+                              moves, g, ops=ops).pi)
         if ops is tk.KERNELS:
             assert tk.select_walk.launches == sims
             assert tk.backup_paths.launches == sims
@@ -280,8 +272,8 @@ def _gumbel_tree(dev, size=15, batch=64, sims=48, m=16):
                       gumbel_max_considered=m, add_noise=False, max_depth=56)
     states = _random_states(env, batch, 6, 1, dev)
     g = torch.Generator(device=dev).manual_seed(2)
-    *_, tree = run_gumbel_packed_with_tree(
-        env, mcfg, fn.make_fused_eval_fn(cfg), folded, states, g)
+    *_, tree = run_search(
+        env, mcfg, fn.make_fused_eval_fn(cfg), folded, states, generator=g)
     return (env, mcfg, tk.packed_layout(size * size, mcfg.node_capacity),
             tree.packed)
 
@@ -461,8 +453,8 @@ def test_gumbel_search_kernels_equal_plain_and_count_launches():
             tk.reset_launch_counts()
             fn.reset_launch_counts()
             g = torch.Generator(device=dev).manual_seed(7)
-            outs.append(run_gumbel_mcts(env, mcfg, eval_fn, folded, states,
-                                        g, ops=ops))
+            outs.append(run_search(env, mcfg, eval_fn, folded, states,
+                                   generator=g, ops=ops)[:3])
             if ops is tk.KERNELS:
                 assert tk.gumbel_select_walk.launches == walks
                 assert tk.backup_paths.launches == 24
@@ -595,9 +587,8 @@ def test_backup_vl_and_finalize_kernels_equal_plain(size, batch, k):
                       max_depth=56, leaves_per_sim=k, add_noise=False)
     states = _random_states(env, batch, 6, 1, dev)
     moves = torch.full((batch,), 6, dtype=torch.int32, device=dev)
-    _, _, tree = run_mcts_packed_with_tree(env, mcfg, make_eval_fn(), net,
-                                           states, moves)
-    packed = tree.packed
+    packed = run_search(env, mcfg, make_eval_fn(), net, states,
+                        moves).carry.packed
     layout = tk.packed_layout(size * size, mcfg.node_capacity)
     g = torch.Generator(device=dev).manual_seed(size + k)
     a = size * size
@@ -651,9 +642,8 @@ def test_kleaf_and_reuse_searches_kernels_equal_plain():
     for ops in (tk.KERNELS, tk.PLAIN):
         tk.reset_launch_counts()
         g = torch.Generator(device=dev).manual_seed(7)
-        pi, q, tree = run_mcts_packed_with_tree(env, kleaf, make_eval_fn(),
-                                                net, states, moves, g,
-                                                ops=ops)
+        pi, q, _, tree = run_search(env, kleaf, make_eval_fn(), net, states,
+                                    moves, g, ops=ops)
         outs.append((pi, q, tree.packed))
         if ops is tk.KERNELS:
             assert tk.select_walk.launches == 24
@@ -681,14 +671,14 @@ def test_kleaf_and_reuse_searches_kernels_equal_plain():
             trace = []
             for _ in range(2):
                 if search == "puct":
-                    pi, q, carry = run_mcts_packed_with_tree(
+                    pi, q, _, carry = run_search(
                         env, mcfg, make_eval_fn(), net, st, moves, g,
                         ops=ops, carry=carry)
                     act = pi.argmax(dim=1)
                 else:
-                    pi, q, act, carry = run_gumbel_packed_with_tree(
-                        env, mcfg, fn.make_fused_eval_fn(cfg64), folded, st, g,
-                        ops=ops, carry=carry)
+                    pi, q, act, carry = run_search(
+                        env, mcfg, fn.make_fused_eval_fn(cfg64), folded, st,
+                        generator=g, ops=ops, carry=carry)
                 trace += [pi, q, act, *_carry_tensors(carry)]
                 carry = tp.packed_advance_root(env, mcfg, carry, act)
                 trace += _carry_tensors(carry)
@@ -930,16 +920,14 @@ def test_player_searches_at_batch_1_kernels_equal_plain(tmp_path):
                                  model_path=ckpt, device=dev)
         player.tree_ops = ops
         searches = []
+        search = player._search
 
-        def recorded(name, search):
-            def run(*args):
-                out = search(*args)
-                searches.append((name, out[0]))
-                return out
-            return run
+        def run(state, turn_number, carry=None, search=search):
+            out = search(state, turn_number, carry)
+            searches.append(("fresh" if carry is None else "resume", out[0]))
+            return out
 
-        for name in ("_search_fresh", "_search_resume"):
-            setattr(player, name, recorded(name, getattr(player, name)))
+        player._search = run
         board = np.zeros((15, 15), np.int8)
         board[7, 7] = 1
         tk.reset_launch_counts()
@@ -949,8 +937,7 @@ def test_player_searches_at_batch_1_kernels_equal_plain(tmp_path):
             board[move] = 2
             trace += [torch.tensor(move), *_carry_tensors(player._carry)]
             board[reply if board[reply] == 0 else (reply[0], 14)] = 1
-        assert [n for n, _ in searches] == [
-            "_search_fresh", "_search_resume", "_search_resume"]
+        assert [n for n, _ in searches] == ["fresh", "resume", "resume"]
         trace += [torch.from_numpy(pi) for _, pi in searches]
         if ops is tk.KERNELS:
             assert tk.select_walk.launches == 3 * 400
@@ -983,7 +970,13 @@ def test_gumbel_player_at_batch_1_kernels_equal_plain(tmp_path):
         player.tree_ops = ops
         pis = []
         search = player._search
-        player._search = lambda *args: pis.append(search(*args)) or pis[-1]
+
+        def run(*args, search=search):
+            out = search(*args)
+            pis.append(out[0])
+            return out
+
+        player._search = run
         board = np.zeros((15, 15), np.int8)
         board[7, 7] = 1
         tk.reset_launch_counts()
@@ -1021,8 +1014,7 @@ def test_backup_paths_at_depth_10002_on_a_real_5000_simulation_tree():
     assert depth == 10002
     states = _random_states(env, 1, 4, 3, dev)
     moves = torch.full((1,), 4, dtype=torch.int32, device=dev)
-    _, _, carry = run_mcts_packed_with_tree(env, mcfg, make_eval_fn(), net,
-                                            states, moves)
+    carry = run_search(env, mcfg, make_eval_fn(), net, states, moves).carry
     layout = tk.packed_layout(225, mcfg.node_capacity)
     got = tk.select_walk(carry.packed, layout, 1.0, depth, True)
     want = tk.select_walk_plain(carry.packed, layout, 1.0, depth, True)

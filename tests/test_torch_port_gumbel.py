@@ -36,15 +36,12 @@ from alphazero_gomoku_tpu.search.tree_pallas import (
 from alphazero_gomoku_tpu_torch.games import make_env
 from alphazero_gomoku_tpu_torch.games.gomoku import GomokuEnv
 from alphazero_gomoku_tpu_torch.ops import tree_kernels as tk
-from alphazero_gomoku_tpu_torch.search import MCTSConfig, run_mcts_with_q
-from alphazero_gomoku_tpu_torch.search.gumbel import (
-    halving_schedule,
-    run_gumbel_mcts,
+from alphazero_gomoku_tpu_torch.search import (
+    MCTSConfig,
+    run_mcts_with_q,
+    run_search,
 )
-from alphazero_gomoku_tpu_torch.search.tree_packed import (
-    run_gumbel_packed,
-    run_gumbel_packed_with_tree,
-)
+from alphazero_gomoku_tpu_torch.search.gumbel import halving_schedule
 from alphazero_gomoku_tpu_torch.selfplay import SelfPlayConfig, play_games
 
 from torch_port_util import (  # noqa: F401  (one_torch_thread: autouse)
@@ -99,7 +96,7 @@ def searched(request):
         jenv, JaxMCTSConfig(backend="pallas", **kw), te.jax, None, key,
         root_states=s, interpret=True))(js)
     u = torch.from_numpy(np.array(_uniforms(key, BATCH)))
-    *tout, tree = run_gumbel_packed_with_tree(
+    *tout, tree = run_search(
         env, MCTSConfig(**kw), te.torch, None, to_torch_state(js), uniforms=u)
     tout.append(tree.packed)
     return dict(cfg=MCTSConfig(**kw), env=env, te=te, states=js, u=u,
@@ -128,7 +125,7 @@ def test_round_parallel_equals_serial(searched):
     cfg = searched["cfg"]
     flip = dataclasses.replace(
         cfg, gumbel_round_parallel=not cfg.gumbel_round_parallel)
-    *other, tree = run_gumbel_packed_with_tree(
+    *other, tree = run_search(
         searched["env"], flip, searched["te"].torch, None,
         to_torch_state(searched["states"]), uniforms=searched["u"])
     for x, y in zip(searched["torch"], other + [tree.packed]):
@@ -190,8 +187,8 @@ def test_endgame_with_fewer_legal_moves_than_m_matches_jax(parallel):
         jenv, JaxMCTSConfig(backend="pallas", **kw), te.jax, None, s, key,
         interpret=True))(js)
     u = torch.from_numpy(np.array(_uniforms(key, BATCH)))
-    pt, qt, at = run_gumbel_packed(env, MCTSConfig(**kw), te.torch, None,
-                                   to_torch_state(js), uniforms=u)
+    pt, qt, at, _ = run_search(env, MCTSConfig(**kw), te.torch, None,
+                               to_torch_state(js), uniforms=u)
     np.testing.assert_array_equal(np.asarray(aj), at.numpy())
     np.testing.assert_allclose(pt.numpy(), np.asarray(pj), rtol=0, atol=TOL)
     np.testing.assert_allclose(qt.numpy(), np.asarray(qj), rtol=0, atol=TOL)
@@ -252,13 +249,14 @@ def test_run_mcts_with_q_dispatches_gumbel():
     moves = torch.zeros(4, dtype=torch.int32)
     pi, q = run_mcts_with_q(env, cfg, te.torch, None, states, moves,
                             torch.Generator().manual_seed(4))
-    want = run_gumbel_mcts(env, cfg, te.torch, None, states,
-                           torch.Generator().manual_seed(4))
+    want = run_search(env, cfg, te.torch, None, states,
+                      generator=torch.Generator().manual_seed(4))
     assert torch.equal(pi, want[0]) and torch.equal(q, want[1])
     # the plain tree functions give the same search on the CPU
-    plain = run_gumbel_mcts(env, cfg, te.torch, None, states,
-                            torch.Generator().manual_seed(4), ops=tk.PLAIN)
-    for x, y in zip(want, plain):
+    plain = run_search(env, cfg, te.torch, None, states,
+                       generator=torch.Generator().manual_seed(4),
+                       ops=tk.PLAIN)
+    for x, y in zip(want[:3], plain[:3]):
         assert torch.equal(x, y)
 
 

@@ -32,10 +32,7 @@ from alphazero_gomoku_tpu_torch.models import (
     init_params,
     make_eval_fn,
 )
-from alphazero_gomoku_tpu_torch.search import MCTSConfig
-from alphazero_gomoku_tpu_torch.search.tree_packed import (
-    run_gumbel_packed_with_tree,
-)
+from alphazero_gomoku_tpu_torch.search import MCTSConfig, run_search
 
 from torch_port_util import (  # noqa: F401  (one_torch_thread: autouse)
     one_torch_thread,
@@ -78,7 +75,7 @@ def test_gumbel64_at_15x15_matches_jax(plies, batch, seed, parallel):
     # the JAX package's root uniforms (tree_pallas.py), injected
     u = jax.random.uniform(key, (batch, A), jnp.float32, minval=1e-12,
                            maxval=1.0)
-    pt, qt, at, tree = run_gumbel_packed_with_tree(
+    pt, qt, at, tree = run_search(
         env, MCTSConfig(**kw), eval_fn, net, to_torch_state(states),
         uniforms=torch.from_numpy(np.array(u)))
     np.testing.assert_array_equal(np.asarray(aj), at.numpy())

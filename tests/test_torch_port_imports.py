@@ -92,3 +92,43 @@ def test_no_root_script_loaded_by_path(path):
     for needle in ("spec_from_file_location", "runpy", "SourceFileLoader",
                    "sys.path"):
         assert needle not in text, f"{path.name} uses {needle}"
+
+
+SEARCH = PORT / "search"
+
+
+def _imports(path):
+    """Every import statement of ``path``: ``(node, modules)``, relative
+    modules resolved against the ``search`` package."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield node, [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = node.module or ""
+            if node.level:
+                base = "alphazero_gomoku_tpu_torch.search." + base
+            yield node, [base] + [f"{base}.{a.name}" for a in node.names]
+
+
+@pytest.mark.parametrize("path", sorted(SEARCH.glob("*.py")),
+                         ids=lambda p: p.name)
+def test_search_modules_import_only_at_the_top(path):
+    """A function-level import hides a cycle between the search modules."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for fn in ast.walk(tree):
+        if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            inner = [n for n in ast.walk(fn)
+                     if isinstance(n, (ast.Import, ast.ImportFrom))]
+            assert not inner, f"{path.name}: {fn.name} imports inside"
+
+
+@pytest.mark.parametrize("name", ["tree.py", "gumbel.py"])
+def test_search_config_and_halving_import_nothing_of_tree_packed(name):
+    """``tree.py`` (config, noise, priors) and ``gumbel.py`` (halving
+    schedule, completed Q) sit below ``tree_packed.py``, which imports both
+    and holds the searches: the module graph's arrows point one way."""
+    for _, modules in _imports(SEARCH / name):
+        for mod in modules:
+            assert "tree_packed" not in mod.split("."), \
+                f"{name} imports {mod}"

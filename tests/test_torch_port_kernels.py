@@ -30,9 +30,7 @@ from alphazero_gomoku_tpu.search.tree_pallas import (
 from alphazero_gomoku_tpu_torch.games.gomoku import GomokuEnv
 from alphazero_gomoku_tpu_torch.ops import tree_kernels as tk
 from alphazero_gomoku_tpu_torch.search.tree import MCTSConfig
-from alphazero_gomoku_tpu_torch.search.tree_packed import (
-    run_mcts_packed_with_tree,
-)
+from alphazero_gomoku_tpu_torch.search.tree_packed import run_search
 
 from torch_port_util import (  # noqa: F401  (one_torch_thread: autouse)
     TableEval,
@@ -68,7 +66,7 @@ def trees(request):
     _, _, carry = jax.jit(lambda s: jax_search_with_tree(
         jenv, jcfg, te.jax, None, jnp.asarray(moves), jax.random.PRNGKey(0),
         root_states=s, interpret=True))(js)
-    _, _, tree = run_mcts_packed_with_tree(
+    _, _, _, tree = run_search(
         env, cfg, te.torch, None, to_torch_state(js), torch.from_numpy(moves))
     return cfg, np.asarray(carry.packed), tree.packed
 

@@ -27,10 +27,7 @@ from alphazero_gomoku_tpu.search.tree_pallas import (
 )
 from alphazero_gomoku_tpu_torch.games.gomoku import GomokuEnv
 from alphazero_gomoku_tpu_torch.ops import tree_kernels as tk
-from alphazero_gomoku_tpu_torch.search import MCTSConfig
-from alphazero_gomoku_tpu_torch.search.tree_packed import (
-    run_mcts_packed_with_tree,
-)
+from alphazero_gomoku_tpu_torch.search import MCTSConfig, run_search
 
 from torch_port_util import (  # noqa: F401  (one_torch_thread: autouse)
     TableEval,
@@ -65,7 +62,7 @@ def _search_both(size, batch, plies, k, sims, seed, spare=0, js=None,
         noise = torch.from_numpy(np.array(jax_dirichlet(
             sub, kw["dirichlet_alpha"], (batch, size * size))))
     cfg = MCTSConfig(**kw)
-    pt, qt, carry = run_mcts_packed_with_tree(
+    pt, qt, _, carry = run_search(
         env, cfg, te.torch, None, to_torch_state(js), torch.from_numpy(moves),
         noise=noise, ops=ops)
     return cfg, (np.asarray(pj), np.asarray(qj), np.array(jcarry.packed)), \
@@ -229,10 +226,10 @@ def test_kleaf_search_runs_the_modes_and_plain_ops_agree():
         return tk.backup_paths(*args, mode=mode)
 
     ops = tk.TreeOps(tk.select_walk, spy, tk.gumbel_select_walk)
-    out = run_mcts_packed_with_tree(env, cfg, te.torch, None, states, moves,
-                                    ops=ops)
+    out = run_search(env, cfg, te.torch, None, states, moves, ops=ops)
     assert modes == (["vl"] * 3 + ["finalize"] * 3) * 4
-    plain = run_mcts_packed_with_tree(env, cfg, te.torch, None, states, moves,
-                                      ops=tk.PLAIN)
-    for x, y in zip(out[:2] + (out[2].packed,), plain[:2] + (plain[2].packed,)):
+    plain = run_search(env, cfg, te.torch, None, states, moves, ops=tk.PLAIN)
+    assert out.action is None and plain.action is None
+    for x, y in zip(out[:2] + (out.carry.packed,),
+                    plain[:2] + (plain.carry.packed,)):
         assert torch.equal(x, y)

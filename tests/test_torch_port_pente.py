@@ -36,10 +36,7 @@ from alphazero_gomoku_tpu_torch.search import (
     MCTSConfig,
     init_packed_carry,
     packed_advance_root,
-)
-from alphazero_gomoku_tpu_torch.search.tree_packed import (
-    run_gumbel_packed_with_tree,
-    run_mcts_packed_with_tree,
+    run_search,
 )
 
 from torch_port_util import (  # noqa: F401  (one_torch_thread: autouse)
@@ -307,7 +304,7 @@ def test_searches_on_pente_states_match_jax(search, plies):
         pj, qj, jcarry = jax.jit(lambda s: jax_puct(
             jenv, jcfg, te.jax, None, jnp.asarray(moves), key,
             root_states=s, interpret=True))(js)
-        pt, qt, carry = run_mcts_packed_with_tree(
+        pt, qt, _, carry = run_search(
             env, cfg, te.torch, None, ts, torch.from_numpy(moves))
         np.testing.assert_array_equal(np.asarray(pj), pt.numpy())
         np.testing.assert_allclose(qt.numpy(), np.asarray(qj), rtol=0,
@@ -318,7 +315,7 @@ def test_searches_on_pente_states_match_jax(search, plies):
             interpret=True))(js)
         u = jax.random.uniform(key, (BATCH, SIZE * SIZE), jnp.float32,
                                minval=1e-12, maxval=1.0)
-        pt, qt, at, carry = run_gumbel_packed_with_tree(
+        pt, qt, at, carry = run_search(
             env, cfg, te.torch, None, ts,
             uniforms=torch.from_numpy(np.array(u)))
         np.testing.assert_array_equal(np.asarray(aj), at.numpy())
@@ -379,7 +376,7 @@ def test_reuse_and_advance_root_on_pente_match_jax(search):
         if search == "puct":
             m = np.full((BATCH,), 12 + t, np.int32)
             pj, _, jcarry = jsearch(js, jcarry, key, jnp.asarray(m))
-            pt, _, carry = run_mcts_packed_with_tree(
+            pt, _, _, carry = run_search(
                 env, cfg, te.torch, None, states, torch.from_numpy(m),
                 carry=carry)
             np.testing.assert_array_equal(np.asarray(pj), pt.numpy())
@@ -388,7 +385,7 @@ def test_reuse_and_advance_root_on_pente_match_jax(search):
             _, _, aj, jcarry = jsearch(js, jcarry, key)
             u = jax.random.uniform(key, (BATCH, SIZE * SIZE), jnp.float32,
                                    minval=1e-12, maxval=1.0)
-            _, _, at, carry = run_gumbel_packed_with_tree(
+            _, _, at, carry = run_search(
                 env, cfg, te.torch, None, states,
                 uniforms=torch.from_numpy(np.array(u)), carry=carry)
             np.testing.assert_array_equal(np.asarray(aj), at.numpy())

@@ -198,7 +198,7 @@ def test_puct_player_equals_jax_through_a_pente_capture(in_channels,
     assert g.captures == {1: 1, 2: 0}
     mv = _exact(pair, Pos(g.board, (1, 0)), 11, ["_search_resume"])
     # the resumed root is the position handed in, captured pair included
-    carry = pair.tlog[-1][2][0]
+    carry = pair.tlog[-1][2][2]
     np.testing.assert_array_equal(carry.states.board[0, 0].numpy(), g.board)
     assert carry.states.captures[0, 0].tolist() == [1, 0]
     # and one more ply each way

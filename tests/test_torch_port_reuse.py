@@ -35,10 +35,7 @@ from alphazero_gomoku_tpu_torch.search import (
     init_packed_carry,
     packed_advance_root,
     packed_carry_from_numpy,
-)
-from alphazero_gomoku_tpu_torch.search.tree_packed import (
-    run_gumbel_packed_with_tree,
-    run_mcts_packed_with_tree,
+    run_search,
 )
 
 from torch_port_util import (  # noqa: F401  (one_torch_thread: autouse)
@@ -136,17 +133,18 @@ def test_advance_root_matches_jax(plies, budget):
         assert (kept[~fresh] == budget).all()
 
 
-def _reuse_moves(search, size, batch, kw, moves, plies, seed):
+def _reuse_moves(search, size, batch, kw, moves, plies, seed, fresh=False):
     """``moves`` searches with reuse in both packages, each followed by
     ``packed_advance_root`` with the played moves; every output and every
-    carry is compared."""
+    carry is compared.  The first search starts from ``init_packed_carry``'s
+    carry, or with ``fresh`` from none (a fresh tree, slots from 1)."""
     jenv, env = JaxEnv(size), GomokuEnv(size)
     a = size * size
     te = TableEval(size, seed=seed)
     jcfg, cfg = JaxMCTSConfig(backend="pallas", **kw), MCTSConfig(**kw)
     js = random_jax_states(jenv, batch, plies, seed=seed)
-    jcarry = jax_init_carry(jenv, jcfg, js)
-    carry = init_packed_carry(env, cfg, to_torch_state(js))
+    jcarry = None if fresh else jax_init_carry(jenv, jcfg, js)
+    carry = None if fresh else init_packed_carry(env, cfg, to_torch_state(js))
     step = jax.jit(jax.vmap(jenv.step_safe))
     advance = jax.jit(lambda c, x: jax_advance(jenv, jcfg, c, x))
     if search == "puct":
@@ -164,9 +162,10 @@ def _reuse_moves(search, size, batch, kw, moves, plies, seed):
             move_nums = np.full((batch,), plies + t, np.int32)
             pj, qj, jcarry = jax_search(js, jcarry, key,
                                         jnp.asarray(move_nums))
-            pt, qt, carry = run_mcts_packed_with_tree(
+            pt, qt, at, carry = run_search(
                 env, cfg, te.torch, None, states, torch.from_numpy(move_nums),
                 carry=carry)
+            assert at is None
             np.testing.assert_array_equal(np.asarray(pj), pt.numpy())
             np.testing.assert_allclose(qt.numpy(), np.asarray(qj), rtol=0,
                                        atol=Q_TOL)
@@ -175,7 +174,7 @@ def _reuse_moves(search, size, batch, kw, moves, plies, seed):
             pj, qj, aj, jcarry = jax_search(js, jcarry, key)
             u = jax.random.uniform(key, (batch, a), jnp.float32,
                                    minval=1e-12, maxval=1.0)
-            pt, qt, at, carry = run_gumbel_packed_with_tree(
+            pt, qt, at, carry = run_search(
                 env, cfg, te.torch, None, states,
                 uniforms=torch.from_numpy(np.array(u)), carry=carry)
             np.testing.assert_array_equal(np.asarray(aj), at.numpy())
@@ -198,14 +197,19 @@ def _reuse_moves(search, size, batch, kw, moves, plies, seed):
     ("puct", {}),
     ("gumbel", dict(gumbel_round_parallel=False)),
     ("gumbel", dict(gumbel_round_parallel=True)),
+    # the first search from no carry
+    ("puct", dict(fresh=True)),
+    ("gumbel", dict(fresh=True)),
 ])
 def test_reuse_searches_over_three_moves_match_jax(search, extra):
+    extra = dict(extra)
+    fresh = extra.pop("fresh", False)
     if search == "puct":
         kw = _puct_kw(16, 10, max_depth=56)
     else:
         kw = dict(n_simulations=16, search="gumbel", gumbel_max_considered=8,
                   add_noise=False, reuse_budget=10, max_depth=56, **extra)
-    carry = _reuse_moves(search, 9, 8, kw, 3, plies=4, seed=7)
+    carry = _reuse_moves(search, 9, 8, kw, 3, plies=4, seed=7, fresh=fresh)
     # the carried subtree was not empty: reuse kept nodes
     assert (carry.parent >= 0).any()
 
@@ -227,7 +231,7 @@ def test_reuse_search_refreshes_the_carried_root():
     states = env.init_batch(4, device="cpu")
     cfg = MCTSConfig(**_puct_kw(8, 5))
     moves = torch.zeros(4, dtype=torch.int32)
-    _, _, carry = run_mcts_packed_with_tree(
+    _, _, _, carry = run_search(
         env, cfg, te.torch, None, states, moves,
         carry=init_packed_carry(env, cfg, states))
     assert (carry.parent[:, 1:5] == -1).all()            # slots 1..R-1 free
@@ -235,8 +239,8 @@ def test_reuse_search_refreshes_the_carried_root():
     assert ((carry.parent[:, 5:13] >= 0)
             & (carry.parent[:, 5:13] < 13)).all()
     before = [x.clone() for x in (carry.packed, carry.parent)]
-    _, _, second = run_mcts_packed_with_tree(env, cfg, te.torch, None,
-                                             states, moves, carry=carry)
+    _, _, _, second = run_search(env, cfg, te.torch, None, states, moves,
+                                 carry=carry)
     assert torch.equal(carry.packed, before[0])
     assert torch.equal(carry.parent, before[1])
     assert second.packed[:, tk.SL_N, :49].sum() == 4 * 16

@@ -20,9 +20,12 @@ from alphazero_gomoku_tpu.search.tree import MCTSConfig as JaxMCTSConfig
 from alphazero_gomoku_tpu.search.tree import symmetric_dirichlet as jax_dirichlet
 from alphazero_gomoku_tpu.search.tree_pallas import run_mcts_packed as jax_packed
 from alphazero_gomoku_tpu_torch.games.gomoku import GomokuEnv
-from alphazero_gomoku_tpu_torch.search import MCTSConfig, run_mcts_with_q
+from alphazero_gomoku_tpu_torch.search import (
+    MCTSConfig,
+    run_mcts_with_q,
+    run_search,
+)
 from alphazero_gomoku_tpu_torch.search.tree import symmetric_dirichlet
-from alphazero_gomoku_tpu_torch.search.tree_packed import run_mcts_packed
 
 from torch_port_util import (  # noqa: F401  (one_torch_thread: autouse)
     TableEval,
@@ -91,12 +94,12 @@ def test_search_without_noise_tensor_draws_from_the_generator():
     states = env.init_batch(4, device="cpu")
     moves = torch.zeros(4, dtype=torch.int32)
     cfg = MCTSConfig(n_simulations=8, **NOISE)
-    runs = [run_mcts_packed(env, cfg, te.torch, None, states, moves,
-                            torch.Generator().manual_seed(s))[0]
+    runs = [run_search(env, cfg, te.torch, None, states, moves,
+                       torch.Generator().manual_seed(s)).pi
             for s in (5, 5, 6)]
     assert torch.equal(runs[0], runs[1]) and not torch.equal(runs[0], runs[2])
     with pytest.raises(ValueError, match="generator"):
-        run_mcts_packed(env, cfg, te.torch, None, states, moves)
+        run_search(env, cfg, te.torch, None, states, moves)
 
 
 def _refusal_cases():
@@ -120,7 +123,7 @@ def _refusal_cases():
         def port():
             cfg = MCTSConfig(**kw)
             states = env.init_batch(2, device="cpu")
-            tp.run_mcts_packed_with_tree(
+            tp.run_search(
                 env, cfg, te.torch, None, states,
                 torch.zeros(2, dtype=torch.int32),
                 carry=(tp._fresh_carry(env, cfg, states) if carry else None))
@@ -139,10 +142,10 @@ def _refusal_cases():
         kw = dict(n_simulations=8, search="gumbel", gumbel_max_considered=4)
         states = env.init_batch(2, device="cpu")
         cfg = MCTSConfig(**kw)
-        return (lambda: tp.run_gumbel_packed_with_tree(
+        return (lambda: tp.run_search(
                     env, cfg, te.torch, None, states,
-                    torch.Generator(), carry=tp._fresh_carry(env, cfg,
-                                                              states)),
+                    generator=torch.Generator(),
+                    carry=tp._fresh_carry(env, cfg, states)),
                 lambda: jtp.run_gumbel_packed_with_tree(
                     jenv, JaxMCTSConfig(backend="pallas", **kw), te.jax, None,
                     jax.random.PRNGKey(0), carry=object(),

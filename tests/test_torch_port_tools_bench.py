@@ -33,8 +33,7 @@ from alphazero_gomoku_tpu.selfplay import SelfPlayConfig as JaxSelfPlay
 from alphazero_gomoku_tpu_torch.games import make_env
 from alphazero_gomoku_tpu_torch.models import AZModel
 from alphazero_gomoku_tpu_torch.ops import tree_kernels as tk
-from alphazero_gomoku_tpu_torch.search import MCTSConfig
-from alphazero_gomoku_tpu_torch.search.tree_packed import run_mcts_packed
+from alphazero_gomoku_tpu_torch.search import MCTSConfig, run_search
 from alphazero_gomoku_tpu_torch.tools import (
     device_parity,
     gumbel_determinism_probe,
@@ -169,9 +168,9 @@ def test_search_cost_split_keys_and_null_net_follow_the_jax_tool(
     search = jax.jit(jax_run_mcts, static_argnums=(0, 1, 2))
     jpi = search(jenv, jcfg, jax_null, None, jstates,
                  jnp.zeros((b,), jnp.int32), jax.random.PRNGKey(0))
-    pi, _ = run_mcts_packed(env, cfg, search_cost_split.null_eval, None,
-                            device_parity.random_states(env, b, 6, 1, "cpu"),
-                            torch.zeros(b, dtype=torch.int32))
+    pi, _, _, _ = run_search(env, cfg, search_cost_split.null_eval, None,
+                             device_parity.random_states(env, b, 6, 1, "cpu"),
+                             torch.zeros(b, dtype=torch.int32))
     np.testing.assert_array_equal(pi.numpy(), np.asarray(jpi))
 
 

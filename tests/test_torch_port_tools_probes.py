@@ -145,7 +145,7 @@ def test_tactics_probe_equals_the_jax_tool(tmp_path, monkeypatch, capsys,
         pis["jax"].append(np.asarray(out)[0])
         return out
 
-    real_torch = tactics_probe.run_mcts_packed
+    real_torch = tactics_probe.run_search
 
     def torch_mcts(*args, **kw):
         out = real_torch(*args, **kw)
@@ -153,7 +153,7 @@ def test_tactics_probe_equals_the_jax_tool(tmp_path, monkeypatch, capsys,
         return out
 
     monkeypatch.setattr(jsearch, "run_mcts", jax_mcts)
-    monkeypatch.setattr(tactics_probe, "run_mcts_packed", torch_mcts)
+    monkeypatch.setattr(tactics_probe, "run_search", torch_mcts)
     want = run_main(load_jax_tool("tactics_probe").main, argv, capsys)
     got = run_main(tactics_probe.main, argv, capsys, device="cpu")
     assert len(got) == len(want) == len(pis["jax"]) + 1

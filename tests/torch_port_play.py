@@ -17,6 +17,8 @@ import alphazero_gomoku_tpu.players.alpha_base as jab
 import alphazero_gomoku_tpu_torch.players.alpha_base as tab
 from alphazero_gomoku_tpu_torch.games import make_host_game
 
+# the JAX player's search methods; the port's one ``_search`` is recorded
+# under the name of the one its call stands for (``_port_kind``)
 SEARCHES = ("_search_fresh", "_search_resume", "_search")
 
 
@@ -32,17 +34,18 @@ class Pos:
 
 class Pair:
     """The JAX player and the port's, fed the same positions; each search
-    call's name, pi and (port) first argument are recorded."""
+    call's name, pi and arguments are recorded."""
 
     def __init__(self, jp, tp):
         self.jp, self.tp = jp, tp
         self.jlog, self.tlog = [], []
         self.advances = []          # the port's (carry, action) advanced
-        for player, log in ((jp, self.jlog), (tp, self.tlog)):
-            for name in SEARCHES:
-                if hasattr(player, name):
-                    setattr(player, name,
-                            self._recorder(getattr(player, name), name, log))
+        for name in SEARCHES:
+            if hasattr(jp, name):
+                setattr(jp, name,
+                        self._recorder(getattr(jp, name), name, self.jlog))
+        tp._search = self._recorder(tp._search, lambda args: _port_kind(
+            tp, *args), self.tlog)
         advance = tp._advance
 
         def recorded_advance(carry, action):
@@ -53,10 +56,12 @@ class Pair:
 
     @staticmethod
     def _recorder(fn, name, log):
+        """``fn`` recording each call under ``name`` (or ``name(args)``)."""
         def wrapped(*args):
             out = fn(*args)
             pi = out[0] if isinstance(out, tuple) else out
-            log.append((name, np.asarray(pi), args))
+            log.append((name(args) if callable(name) else name,
+                        np.asarray(pi), args))
             return out
         return wrapped
 
@@ -71,6 +76,15 @@ class Pair:
         assert [k for k, _, _ in jnew] == kinds
         return mj, mt, kinds, [(j, t) for (_, j, _), (_, t, _) in
                                zip(jnew, tnew)]
+
+
+def _port_kind(player, state, turn_number, carry=None):
+    """The JAX player's search method that a call of the port's
+    ``_search`` stands for: a resume of a carried tree, a fresh search
+    that starts one (reuse on), or a search without reuse."""
+    if carry is not None:
+        return "_search_resume"
+    return "_search_fresh" if player.tree_reuse else "_search"
 
 
 def players(game, sims, table=None, model_path=None, size=9, **kw):
